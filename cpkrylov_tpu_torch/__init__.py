@@ -1,0 +1,35 @@
+"""cpkrylov_tpu_torch — the PyTorch + CUDA port of cpkrylov_tpu.
+
+Constraint-preconditioned Krylov solvers for regularized saddle-point
+systems
+
+    [ A  B' ] [x1]   [b1]
+    [ B  -C ] [x2] = [b2]
+
+on PyTorch tensors, with hand-written CUDA kernels for Hopper (sm_90a) where
+the JAX package had Pallas TPU kernels: the DIA SpMV (``ops/cuda_dia.py``)
+and the bidiagonal triangular solve (``precond/cuda_bidiag.py``).  The JAX
+package ``cpkrylov_tpu`` is the reference this port is tested against; this
+package never imports JAX.
+"""
+
+from .config import PrecondOptions, SolverOptions
+from .driver import SolveOutput, solve
+from .operators.linop import (FunctionOperator, MatrixOperator,
+                              aslinearoperator)
+from .ops.dia import DIA
+from .ops.formats import CSR, Diagonal, csr_from_scipy
+from .precond.cp import CPPrecond, CPState, make_preconditioner
+from .solvers.common import KrylovResult
+from .solvers.cpminres import cpminres
+
+__all__ = [
+    "CSR", "DIA", "Diagonal", "csr_from_scipy",
+    "MatrixOperator", "FunctionOperator", "aslinearoperator",
+    "PrecondOptions", "SolverOptions",
+    "CPPrecond", "CPState", "make_preconditioner",
+    "KrylovResult", "SolveOutput", "solve",
+    "cpminres",
+]
+
+__version__ = "0.1.0"

@@ -1,0 +1,168 @@
+"""Build and load the port's native code with plain C interfaces.
+
+Two libraries, each built at first use and rebuilt whenever one of its
+sources is newer than it, into ``build/cpkrylov_tpu_torch/`` beside the
+package (a git-ignored directory):
+
+* ``libcpkt_kernels.so``: the hand-written CUDA kernels (``csrc/*.cu``),
+  compiled by ``nvcc`` for Hopper (``sm_90a``).  Nothing includes PyTorch's
+  headers, so the build takes seconds; the kernels are called through
+  ``ctypes`` with raw device pointers and the current stream.
+* ``libcpkt_native.so``: the host LDL^T (``native/*.cpp``), compiled by
+  ``g++``.
+
+Every kernel entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` turns a nonzero code into an exception.  A failed build raises
+:class:`BuildError`, which no caller catches: there is no fallback to the
+plain PyTorch versions for CUDA tensors, nor to another host factorization.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
+                         "cpkrylov_tpu_torch")
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+NATIVE_DIR = os.path.join(PKG_DIR, "native")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
+
+_LOCK = threading.Lock()
+_LIBS: dict = {}
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+
+# C signatures of the kernel library: (name, argtypes).  Every function
+# returns an int (a cudaError_t).
+_KERNEL_SIGNATURES = {
+    # data, offsets (int64, device), ndiag, nrows, ncols, x, y, stream
+    "cpkt_dia_spmv_f32": (_P, _P, _I32, _I64, _I64, _P, _P, _P),
+    "cpkt_dia_spmv_f64": (_P, _P, _I32, _I64, _I64, _P, _P, _P),
+    # a, invd, b, x, agg (2*nblocks), carry (nblocks), n, reverse, stream
+    "cpkt_bidiag_scan_f32": (_P, _P, _P, _P, _P, _P, _I64, _I32, _P),
+    "cpkt_bidiag_scan_f64": (_P, _P, _P, _P, _P, _P, _I64, _I32, _P),
+    # elements per scan tile (sizes the scratch)
+    "cpkt_bidiag_tile": (),
+}
+
+
+class BuildError(Exception):
+    """A native library could not be built.  Deliberately not a
+    ``RuntimeError``, so that numeric fallbacks never swallow it."""
+
+
+def _sources(directory: str, patterns) -> list:
+    out = []
+    for pat in patterns:
+        out += glob.glob(os.path.join(directory, pat))
+    return sorted(out)
+
+
+def _stale(lib: str, deps: list) -> bool:
+    if not os.path.exists(lib):
+        return True
+    t = os.path.getmtime(lib)
+    return any(os.path.getmtime(s) > t for s in deps)
+
+
+def _build(name: str, compiler: list, sources: list, deps: list) -> str:
+    """Compile ``sources`` into BUILD_DIR/name unless it is up to date.
+
+    The library is written under a temporary name and renamed into place,
+    so concurrent processes (test workers) never load a half-written file.
+    """
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib = os.path.join(BUILD_DIR, name)
+    if not _stale(lib, deps):
+        return lib
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=name + ".", suffix=".tmp")
+    os.close(fd)
+    try:
+        proc = subprocess.run([*compiler, "-o", tmp, *sources],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise BuildError(
+                f"building {name} failed ({' '.join(compiler[:1])}):\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc`` as PyTorch resolves it,
+    else ``nvcc`` on PATH."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise BuildError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def kernel_library() -> ctypes.CDLL:
+    """Build (if stale) and load the CUDA kernel library."""
+    with _LOCK:
+        lib = _LIBS.get("kernels")
+        if lib is not None:
+            return lib
+        sources = _sources(CSRC_DIR, ("*.cu",))
+        deps = _sources(CSRC_DIR, ("*.cu", "*.cuh"))
+        path = _build("libcpkt_kernels.so",
+                      [nvcc_path(), *NVCC_FLAGS, f"-I{CSRC_DIR}"],
+                      sources, deps)
+        lib = ctypes.CDLL(path)
+        for fn, argtypes in _KERNEL_SIGNATURES.items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        lib.cpkt_error_string.argtypes = [ctypes.c_int]
+        lib.cpkt_error_string.restype = ctypes.c_char_p
+        _LIBS["kernels"] = lib
+        return lib
+
+
+def native_library() -> ctypes.CDLL:
+    """Build (if stale) and load the host LDL^T library."""
+    with _LOCK:
+        lib = _LIBS.get("native")
+        if lib is not None:
+            return lib
+        sources = _sources(NATIVE_DIR, ("*.cpp",))
+        deps = _sources(NATIVE_DIR, ("*.cpp", "*.h"))
+        path = _build("libcpkt_native.so", ["g++", *GXX_FLAGS], sources, deps)
+        lib = ctypes.CDLL(path)
+        _LIBS["native"] = lib
+        return lib
+
+
+def build_kernels() -> float:
+    """Build and load the kernel library now; returns the seconds taken."""
+    t0 = time.perf_counter()
+    kernel_library()
+    return time.perf_counter() - t0
+
+
+def check(status: int, what: str) -> None:
+    """Raise when a kernel entry point reported a CUDA error."""
+    if status != 0:
+        msg = kernel_library().cpkt_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

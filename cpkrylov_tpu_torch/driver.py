@@ -1,0 +1,143 @@
+"""Top-level driver: build the constraint preconditioner, shift the RHS,
+run the kernel, un-shift — the reg_cpkrylov equivalent.
+
+Port of ``cpkrylov_tpu/driver.py`` for CPMINRES in the solve's own dtype:
+  * build and time the preconditioner (reg_cpkrylov.m:128-132),
+  * shift the system so the RHS becomes [b1'; 0] when b2 != 0 (l.152-160),
+  * run the kernel (l.163), un-shift (l.166-173), attach ptime/stime.
+
+Explicit host blocks are moved to ``device`` once per call: A and B as DIA
+when their natural-order diagonals pass the fill gate (``ops/dia.py``),
+else CSR; C = delta*I as ``Diagonal``.  The JAX package's mixed-precision
+outer refinement (``refine=``, ``solve_mixed``) is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from .config import PrecondOptions, SolverOptions
+from .operators.linop import aslinearoperator
+from .ops.dia import pack_dia
+from .precond.cp import CPPrecond, make_preconditioner
+from .solvers.common import KrylovResult
+from .solvers.cpminres import cpminres
+from .utils.device import resolve_device, torch_dtype
+from .utils.profiling import SOLVE_SPAN
+from .utils.timing import sync
+
+SOLVERS = {"cpminres": cpminres}
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveOutput:
+    """Driver output: combined solution + stats (reg_cpkrylov.m:107-117)."""
+
+    x: torch.Tensor            # (n+m,) combined solution, on the device
+    x1: torch.Tensor           # (n,)
+    x2: torch.Tensor           # (m,)
+    niters: int
+    resid_history: np.ndarray  # NaN-trimmed
+    solved: bool
+    istatus: int
+    ptime: float               # preconditioner build seconds
+    stime: float               # solve seconds
+    result: KrylovResult       # full kernel result
+    A_op: object               # the device operator A was applied through
+
+
+def _device_operand(X, dtype, device):
+    """Explicit host block -> device operator: DIA when the natural-order
+    pack passes the fill gate, else Diagonal/CSR (aslinearoperator)."""
+    if sp.issparse(X) or isinstance(X, np.ndarray):
+        is_diag = (X.shape[0] == X.shape[1]
+                   and sp.issparse(X) and X.nnz <= X.shape[0])
+        if not is_diag:
+            packed = pack_dia(X, dtype=dtype, device=device)
+            if packed is not None:
+                return aslinearoperator(packed)
+    return aslinearoperator(X, dtype=dtype, device=device)
+
+
+def _solve_core(method: str, b, A_op, C_op, B_op, M: CPPrecond,
+                opts: SolverOptions, shift: bool):
+    """Shift -> kernel -> un-shift (reg_cpkrylov.m:152-173)."""
+    n, m = M.n, M.m
+    mstate = M.init_state(b.dtype)
+    if shift:
+        # xy0 = M * [0; b2]; b1' = b1 - A*xy0_1 - B'*xy0_2
+        mstate, xy0, _ = M.apply(
+            mstate, torch.cat([torch.zeros(n, dtype=b.dtype,
+                                           device=b.device), b[n:]]))
+        b1 = b[:n] - A_op.matvec(xy0[:n]) - B_op.rmatvec(xy0[n:])
+    else:
+        xy0 = torch.zeros(n + m, dtype=b.dtype, device=b.device)
+        b1 = b[:n]
+    res = SOLVERS[method](b1, A_op, C_op, M, opts, mstate, B=B_op)
+    x1 = xy0[:n] + res.x if shift else res.x
+    x2 = xy0[n:] + res.y if shift else res.y
+    return res, x1, x2
+
+
+def solve(method, b, A, B, C, G, *,
+          opts: SolverOptions | None = None,
+          precond_opts: PrecondOptions | None = None,
+          backend: str = "auto", ordering="auto", panel: int = 256,
+          dtype=None, device="cpu", M: CPPrecond | None = None,
+          refine: bool = False) -> SolveOutput:
+    """Solve the regularized saddle-point system [A B'; B -C] [x1;x2] = b.
+
+    ``method`` is "cpminres" (or the kernel function).  ``A`` may be a
+    matrix or an operator; B, C, G must be explicit host matrices since
+    they form the preconditioner.  Every vector, operator and factor lives
+    on ``device``; asking for "cuda" without CUDA raises.  ``dtype``
+    defaults to the rhs dtype.  Pass ``M`` to reuse a built preconditioner.
+    """
+    if refine:
+        raise NotImplementedError(
+            "mixed-precision refinement is not ported yet")
+    opts = opts or SolverOptions()
+    if callable(method):
+        method = method.__name__
+    if method not in SOLVERS:
+        raise ValueError(f"unknown solver {method!r}")
+    device = resolve_device(device)
+    if isinstance(b, torch.Tensor):
+        b = b.detach().cpu().numpy()
+    b = np.asarray(b).reshape(-1)
+    dtype = torch_dtype(dtype if dtype is not None else b.dtype)
+    n = A.shape[0]
+    m = C.shape[0]
+    if b.shape[0] != n + m:
+        raise ValueError(f"rhs has length {b.shape[0]}, expected {n + m}")
+
+    t0 = time.perf_counter()
+    if M is None:
+        M = make_preconditioner(G, B, C, options=precond_opts,
+                                backend=backend, ordering=ordering,
+                                panel=panel, dtype=dtype, device=device)
+    ptime = time.perf_counter() - t0
+
+    A_op = _device_operand(A, dtype, device)
+    C_op = aslinearoperator(C, dtype=dtype, device=device)
+    B_op = _device_operand(B, dtype, device)
+    shift = bool(np.any(b[n:]))                     # reg_cpkrylov.m:154
+    b_dev = torch.as_tensor(b).to(device=device, dtype=dtype)
+    sync(device)
+
+    t1 = time.perf_counter()
+    with torch.profiler.record_function(SOLVE_SPAN):
+        res, x1, x2 = _solve_core(method, b_dev, A_op, C_op, B_op, M, opts,
+                                  shift)
+        sync(device)
+    stime = time.perf_counter() - t1
+
+    return SolveOutput(
+        x=torch.cat([x1, x2]), x1=x1, x2=x2, niters=res.niters,
+        resid_history=res.trimmed_history(), solved=res.solved,
+        istatus=res.istatus, ptime=ptime, stime=stime, result=res,
+        A_op=A_op)

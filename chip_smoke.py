@@ -12,22 +12,32 @@ before its last line:
 1. device: torch and CUDA versions, the card's name and power limit;
 2. build: compile the CUDA kernels from ``cpkrylov_tpu_torch/csrc`` (nvcc,
    sm_90a) and report the seconds taken;
-3. kernels: each kernel against its plain PyTorch version on the card, in
-   f32 and f64, at the main path's shapes (DIA SpMV on A, K_P and B of the
-   1M x 250k banded system; the bidiagonal scan forward and reverse at
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the main paths' shapes (DIA SpMV on A, K_P and B of the 1M x 250k banded
+   system in f32 and f64; the bidiagonal scan forward and reverse at
    n = 1.25M and at an n that is not a multiple of the scan tile, also held
-   against scipy in f64), with times from CUDA events;
+   against scipy in f64; the df64 DIA SpMV on A, B and B' of the same
+   system, bit for bit against its plain version and to 1e-12 against
+   scipy's f64 product), with times from CUDA events;
 4. golden: CPMINRES on the shipped ``cvxqp1_m`` fixture in f64 on the card,
    53 +- 2 iterations and rel-err < 5e-6 against scipy ``spsolve``;
-5. main path: ``make_preconditioner`` + ``solve("cpminres", ...)`` in f64 on
+5. golden_mixed: ``solve_mixed`` on ``cvxqp1_m`` with f32 inner solves to
+   1e-8, through the df64-applied factor, rel-err < 1e-7, <= 5 passes;
+6. main path: ``make_preconditioner`` + ``solve("cpminres", ...)`` in f64 on
    the card for ``banded_saddle_system(1_000_000, 250_000, bandwidth=3)``
    at rtol 1e-6, checked by a host f64 true residual and by the kernels'
-   launch counters (reset just before the main path starts).
+   launch counters (reset just before the main path starts);
+7. main_mixed: the f32-inner / df64-outer mixed solve of the same system,
+   device-resident, at the JAX bench's settings (``bench.py:148-154,
+   183-184``); run twice, the second (warm) run checked by a host f64 true
+   residual and by the launch counters (reset just before it).
 
-With ``--profile DIR`` it then runs the main-path solve once more under
-``torch.profiler``, prints the device's busy time and idle share inside the
-solve span of that one trace, and writes the trace (``profile_main.json``)
-and its per-op table (``profile_main.txt``) into DIR.
+With ``--profile DIR`` it then profiles one more warm solve of each main
+path under ``torch.profiler``, prints the device's busy time and idle share
+inside the solve span of each trace (``cpkrylov.solve``, and
+``cpkrylov.solve_mixed`` with its device loop ``cpkrylov.mixed_loop``),
+and writes the traces (``profile_main.json``,
+``profile_mixed.json``) and per-op tables (``.txt``) into DIR.
 
 Then a JSON line of per-kernel results, the card line from ``nvidia-smi``,
 and as the last line ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -50,6 +60,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # (a Hillis-Steele scan, which associates the products differently).
 DIA_TOL = {"float32": 1e-6, "float64": 1e-14}
 SCAN_TOL = {"float32": 1e-5, "float64": 1e-12}
+# df64 DIA SpMV: every step of the error-free chain is rounded explicitly in
+# the plain version's order, so hi and lo must match exactly; hi + lo
+# carries ~2^-48 relative accuracy, held against scipy's f64 product.
+DF_SCIPY_TOL = 1e-12
+
+# The JAX bench's mixed configuration (bench.py:148-154, 183-184).
+MIXED_SOLVER = dict(atol=0.0, rtol=1e-6, itmax=200, stagwin=25)
+MIXED_INNER_STAGWIN = 25
 
 
 def nvidia_smi_card() -> str:
@@ -73,7 +91,10 @@ def phase_kernels(sysm, device, results):
     import scipy.sparse.linalg as spla
     import torch
 
+    from cpkrylov_tpu_torch.ops.cuda_df_dia import df_dia_spmv
     from cpkrylov_tpu_torch.ops.cuda_dia import dia_spmv
+    from cpkrylov_tpu_torch.ops.df64 import (df_dia_matvec, df_from_f64,
+                                             pack_df_dia)
     from cpkrylov_tpu_torch.ops.dia import dia_matvec, pack_dia
     from cpkrylov_tpu_torch.precond.cp import assemble_kp
     from cpkrylov_tpu_torch.precond.cuda_bidiag import (bidiag_scan,
@@ -155,6 +176,39 @@ def phase_kernels(sysm, device, results):
                         and dtype == torch.float64):
                     scan["ms"], scan["plain_ms"] = ms, pms
 
+    dfd = results["df_dia_spmv"]
+    for label, mat in (("A", sysm.A), ("B", sysm.B), ("Bt", sysm.B.T.tocsr())):
+        d = pack_df_dia(mat, device=device)
+        if d is None:
+            raise RuntimeError(f"{label} did not pack as df64 DIA")
+        x = rng.standard_normal(mat.shape[1])
+        xh, xl = (torch.as_tensor(v).to(device) for v in df_from_f64(x))
+        yh, yl = df_dia_spmv(d, xh, xl)
+        ph, pl = df_dia_matvec(d, (xh, xl))
+        torch.cuda.synchronize()
+        err_h = float(torch.max(torch.abs(yh - ph)))
+        err_l = float(torch.max(torch.abs(yl - pl)))
+        exact = mat @ x
+        y = yh.double().cpu().numpy() + yl.double().cpu().numpy()
+        err_ref = float(np.linalg.norm(y - exact) / np.linalg.norm(exact))
+        dfd["max_abs_err"] = max(dfd["max_abs_err"], err_h, err_l)
+        ms = cuda_time_ms(lambda: df_dia_spmv(d, xh, xl))
+        pms = cuda_time_ms(lambda: df_dia_matvec(d, (xh, xl)), iters=20,
+                           warmup=2)
+        print(f"kernel df_dia_spmv f32x2 {label} {mat.shape[0]}x"
+              f"{mat.shape[1]} offsets={list(d.offsets)} "
+              f"max_abs_err_hi={err_h:.3e} max_abs_err_lo={err_l:.3e} "
+              f"rel_err_vs_scipy_f64={err_ref:.3e} ms={ms:.4f} "
+              f"plain_ms={pms:.4f}", flush=True)
+        if err_h != 0.0 or err_l != 0.0:
+            raise RuntimeError(f"df_dia_spmv {label}: differs from its "
+                               f"plain version (hi {err_h}, lo {err_l})")
+        if not err_ref <= DF_SCIPY_TOL:
+            raise RuntimeError(f"df_dia_spmv {label}: relative error "
+                               f"{err_ref:.3e} vs scipy > {DF_SCIPY_TOL}")
+        if label == "A":
+            dfd["ms"], dfd["plain_ms"] = ms, pms
+
 
 def phase_main_path(sysm, device):
     import numpy as np
@@ -216,37 +270,60 @@ def phase_main_path(sysm, device):
     return launches, M
 
 
-def phase_profile(sysm, device, M, outdir):
+def phase_profile(sysm, device, M, M32, outdir):
     import torch
 
     import cpkrylov_tpu_torch as cpt
-    from cpkrylov_tpu_torch.utils.profiling import device_profile
+    from cpkrylov_tpu_torch.utils.profiling import (MIXED_LOOP_SPAN,
+                                                    MIXED_SPAN, SOLVE_SPAN,
+                                                    device_profile,
+                                                    summarize_trace)
 
     os.makedirs(outdir, exist_ok=True)
     popts = cpt.PrecondOptions(residual_update=True, nitref=1,
                                force_itref=True)
     opts = cpt.SolverOptions(atol=0.0, rtol=1e-6, itmax=200)
-    outs = []
-
-    def run():
-        outs.append(cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C,
-                              sysm.G, device=device, dtype=torch.float64,
-                              opts=opts, precond_opts=popts, M=M))
-
-    prof = device_profile(
-        run, trace_path=os.path.join(outdir, "profile_main.json"))
-    with open(os.path.join(outdir, "profile_main.txt"), "w") as fh:
-        fh.write(prof.table)
-    iters = max(outs[0].niters, 1)
-    print(f"profile main_path iters={outs[0].niters} "
-          f"span_wall_ms={prof.wall_ms:.4f} "
-          f"device_busy_ms={prof.busy_ms:.4f} "
-          f"idle_share={prof.idle_share:.4f} "
-          f"device_ops={prof.device_ops} launches={prof.launches} "
-          f"launches_per_iter={prof.launches / iters:.1f} "
-          f"dir={outdir}", flush=True)
-    if prof.device_ops == 0:
-        raise RuntimeError("the profiled solve shows no device activity")
+    runs = {
+        "main_path": ("profile_main", SOLVE_SPAN, lambda: cpt.solve(
+            "cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
+            device=device, dtype=torch.float64, opts=opts,
+            precond_opts=popts, M=M)),
+        "main_mixed": ("profile_mixed", MIXED_SPAN, lambda: cpt.solve_mixed(
+            "cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G, M=M32,
+            device=device, device_resident=True,
+            opts=cpt.SolverOptions(**MIXED_SOLVER),
+            inner_stagwin=MIXED_INNER_STAGWIN)),
+    }
+    for name, (stem, span, fn) in runs.items():
+        outs = []
+        prof = device_profile(lambda: outs.append(fn()),
+                              trace_path=os.path.join(outdir, stem + ".json"),
+                              span=span)
+        with open(os.path.join(outdir, stem + ".txt"), "w") as fh:
+            fh.write(prof.table)
+        iters = max(outs[0].niters, 1)
+        print(f"profile {name} span={span} iters={outs[0].niters} "
+              f"span_wall_ms={prof.wall_ms:.4f} "
+              f"device_busy_ms={prof.busy_ms:.4f} "
+              f"idle_share={prof.idle_share:.4f} "
+              f"device_ops={prof.device_ops} launches={prof.launches} "
+              f"launches_per_iter={prof.launches / iters:.1f} "
+              f"dir={outdir}", flush=True)
+        if prof.device_ops == 0:
+            raise RuntimeError(f"the profiled {name} solve shows no device "
+                               "activity")
+        if span == MIXED_SPAN:
+            # the device loop inside the same trace, without the packing
+            with open(os.path.join(outdir, stem + ".json")) as fh:
+                loop = summarize_trace(json.load(fh)["traceEvents"],
+                                       span=MIXED_LOOP_SPAN)
+            print(f"profile {name} span={MIXED_LOOP_SPAN} "
+                  f"span_wall_ms={loop.wall_ms:.4f} "
+                  f"device_busy_ms={loop.busy_ms:.4f} "
+                  f"idle_share={loop.idle_share:.4f} "
+                  f"device_ops={loop.device_ops} launches={loop.launches} "
+                  f"launches_per_iter={loop.launches / iters:.1f}",
+                  flush=True)
 
 
 def phase_golden(device):
@@ -272,6 +349,115 @@ def phase_golden(device):
           f"stime_s={out.stime:.4f}", flush=True)
     if not (out.solved and abs(out.niters - 53) <= 2 and rel < 5e-6):
         raise RuntimeError("golden cvxqp1_m check failed")
+
+
+def phase_golden_mixed(device):
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.precond.df_factor import DFFactorApply
+    from cpkrylov_tpu_torch.utils.fixtures import load_fixture
+
+    fix = load_fixture("cvxqp1_m")
+    popts = cpt.PrecondOptions(residual_update=True, nitref=1,
+                               force_itref=True)
+    M32 = cpt.make_preconditioner(fix.G, fix.B, fix.C, options=popts,
+                                  dtype=torch.float32, device=device)
+    if not isinstance(M32.factor, DFFactorApply):
+        raise RuntimeError("cvxqp1_m f32: the df64-applied factor is not "
+                           f"engaged (probe {M32.probe_rel:.3e})")
+    out = cpt.solve_mixed(
+        "cpminres", fix.b, fix.A, fix.B, fix.C, fix.G, M=M32, device=device,
+        opts=cpt.SolverOptions(atol=1e-8, rtol=1e-8, itmax=500),
+        precond_opts=popts)
+    x_ref = spla.spsolve(fix.K.tocsc(), fix.b)
+    rel = float(np.linalg.norm(out.x - x_ref) / np.linalg.norm(x_ref))
+    loop = "host" if out.inner_outputs else "device"
+    print(f"golden_mixed cvxqp1_m cpminres f32-inner solved={out.solved} "
+          f"factor=DFFactorApply probe_rel={M32.probe_rel:.3e} "
+          f"loop={loop} nouter={out.nouter} inner={list(out.inner_niters)} "
+          f"niters={out.niters} rel_err={rel:.3e} "
+          f"stime_s={out.stime:.4f}", flush=True)
+    if not (out.solved and rel < 1e-7 and out.nouter <= 5):
+        raise RuntimeError("golden_mixed cvxqp1_m check failed")
+
+
+def phase_main_mixed(sysm, device):
+    import numpy as np
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.mixed import _lean_inner_options
+    from cpkrylov_tpu_torch.ops import cuda_df_dia, cuda_dia
+    from cpkrylov_tpu_torch.precond import cuda_bidiag
+
+    popts = cpt.PrecondOptions(residual_update=True, nitref=1,
+                               force_itref=True)
+    opts = cpt.SolverOptions(**MIXED_SOLVER)
+    t0 = time.perf_counter()
+    M32 = cpt.make_preconditioner(sysm.G, sysm.B, sysm.C, options=popts,
+                                  dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    ptime = time.perf_counter() - t0
+
+    def run():
+        return cpt.solve_mixed(
+            "cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G, M=M32,
+            device=device, device_resident=True, opts=opts,
+            inner_stagwin=MIXED_INNER_STAGWIN)
+
+    run()                                   # cold: packing, first launches
+    cuda_dia.LAUNCHES = 0
+    cuda_bidiag.LAUNCHES = 0
+    cuda_df_dia.LAUNCHES = 0
+    out = run()
+    launches = {"dia_spmv": cuda_dia.LAUNCHES,
+                "bidiag_scan": cuda_bidiag.LAUNCHES,
+                "df_dia_spmv": cuda_df_dia.LAUNCHES}
+
+    # The device loop alone, apart from the per-call packing, with the
+    # inner preconditioner solve_mixed runs (lean: factor exact at f32).
+    solver = cpt.prepare_mixed_device(
+        "cpminres", sysm.b, sysm.A, sysm.B, sysm.C,
+        _lean_inner_options(M32), opts,
+        inner_stagwin=MIXED_INNER_STAGWIN, device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loop = solver.dispatch()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+
+    x = out.x
+    true_rel = float(np.linalg.norm(sysm.b - sysm.K @ x)
+                     / np.linalg.norm(sysm.b))
+    print(f"main_mixed cpminres f32-inner df64-outer n={sysm.n} m={sysm.m} "
+          f"solved={out.solved} nouter={out.nouter} "
+          f"inner={list(out.inner_niters)} niters={out.niters} "
+          f"factor_nitref={M32.factor_nitref} "
+          f"factor_exact={M32.factor_exact} ptime_s={ptime:.3f} "
+          f"stime_s={out.stime:.4f} loop_s={loop_s:.4f} "
+          f"loop_inner={[int(v) for v in loop[3][:loop[4]]]} "
+          f"ms_per_inner_iter={1e3 * loop_s / max(out.niters, 1):.4f} "
+          f"true_rel_resid={true_rel:.3e} "
+          f"resid_history={[float(f'{v:.4e}') for v in out.resid_history]} "
+          f"launches={launches}", flush=True)
+    if not out.solved:
+        raise RuntimeError("main_mixed not solved")
+    if out.inner_outputs != ():
+        raise RuntimeError("main_mixed did not run the device-resident loop")
+    if not (np.all(np.isfinite(x)) and x.shape == (sysm.n + sysm.m,)):
+        raise RuntimeError("main_mixed solution not finite or wrong shape")
+    if not true_rel <= 1e-6:
+        raise RuntimeError(f"main_mixed true residual {true_rel:.3e} > 1e-6")
+    bounds = {"df_dia_spmv": 3 * out.nouter, "dia_spmv": out.niters,
+              "bidiag_scan": 2 * out.niters}
+    for name, bound in bounds.items():
+        if launches[name] < max(bound, 1):
+            raise RuntimeError(f"main_mixed: {name} launched "
+                               f"{launches[name]} times (< {bound})")
+    return launches, M32
 
 
 def main(argv=None) -> int:
@@ -316,6 +502,10 @@ def main(argv=None) -> int:
                         "replaces":
                             "cpkrylov_tpu/precond/pallas_bidiag.py:100",
                         "max_abs_err": 0.0},
+        "df_dia_spmv": {"name": "df_dia_spmv", "route": "cuda",
+                        "source": "cpkrylov_tpu_torch/csrc/df_dia_spmv.cu",
+                        "replaces": "cpkrylov_tpu/ops/pallas_dia.py:152",
+                        "max_abs_err": 0.0},
     }
     t0 = time.perf_counter()
     sysm = fixtures.banded_saddle_system(1_000_000, 250_000, bandwidth=3)
@@ -325,17 +515,22 @@ def main(argv=None) -> int:
     # the golden solve first: it also brings up the libraries (cuBLAS for
     # the dot products) that the first solve of a process initializes
     phase_golden(device)
-    launches, M = phase_main_path(sysm, device)
+    phase_golden_mixed(device)
+    by_path = {}
+    by_path["main_path"], M = phase_main_path(sysm, device)
+    by_path["main_mixed"], M32 = phase_main_mixed(sysm, device)
     if args.profile:
-        phase_profile(sysm, device, M, args.profile)
+        phase_profile(sysm, device, M, M32, args.profile)
 
     kernels = []
-    for name in ("dia_spmv", "bidiag_scan"):
+    for name in ("dia_spmv", "bidiag_scan", "df_dia_spmv"):
         entry = dict(results[name])
-        entry["launches"] = launches[name]
+        counts = {p: c[name] for p, c in by_path.items() if name in c}
+        entry["launches"] = sum(counts.values())
+        entry["launches_by_path"] = counts
         kernels.append({k: entry[k] for k in (
             "name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms")})
+            "launches_by_path", "max_abs_err", "ms", "plain_ms")})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_card())
     print(json.dumps({"ok": True, "device": {

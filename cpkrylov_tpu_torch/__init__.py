@@ -7,14 +7,16 @@ systems
     [ B  -C ] [x2] = [b2]
 
 on PyTorch tensors, with hand-written CUDA kernels for Hopper (sm_90a) where
-the JAX package had Pallas TPU kernels: the DIA SpMV (``ops/cuda_dia.py``)
-and the bidiagonal triangular solve (``precond/cuda_bidiag.py``).  The JAX
+the JAX package had Pallas TPU kernels: the DIA SpMV (``ops/cuda_dia.py``),
+the bidiagonal triangular solve (``precond/cuda_bidiag.py``) and the df64
+DIA SpMV of the mixed refinement's true residual (``ops/cuda_df_dia.py``).  The JAX
 package ``cpkrylov_tpu`` is the reference this port is tested against; this
 package never imports JAX.
 """
 
 from .config import PrecondOptions, SolverOptions
 from .driver import SolveOutput, solve
+from .mixed import MixedSolveOutput, prepare_mixed_device, solve_mixed
 from .operators.linop import (FunctionOperator, MatrixOperator,
                               aslinearoperator)
 from .ops.dia import DIA
@@ -29,6 +31,7 @@ __all__ = [
     "PrecondOptions", "SolverOptions",
     "CPPrecond", "CPState", "make_preconditioner",
     "KrylovResult", "SolveOutput", "solve",
+    "MixedSolveOutput", "prepare_mixed_device", "solve_mixed",
     "cpminres",
 ]
 

@@ -55,6 +55,10 @@ _KERNEL_SIGNATURES = {
     "cpkt_bidiag_scan_f64": (_P, _P, _P, _P, _P, _P, _I64, _I32, _P),
     # elements per scan tile (sizes the scratch)
     "cpkt_bidiag_tile": (),
+    # hi, lo, offsets (int64, device), ndiag, nrows, ncols, xh, xl, yh, yl,
+    # stream
+    "cpkt_df_dia_spmv_f32": (_P, _P, _P, _I32, _I64, _I64, _P, _P, _P, _P,
+                             _P),
 }
 
 

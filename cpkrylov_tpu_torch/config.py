@@ -2,8 +2,8 @@
 
 Port of ``cpkrylov_tpu/config.py``: the same frozen dataclasses with the
 same defaults, holding only the fields the ported code reads.  Options of
-parts not ported yet (the df64-applied factor, the GMRES and CG-Lanczos
-solvers) come with those parts, so setting them cannot be silently ignored.
+parts not ported yet (the GMRES and CG-Lanczos solvers) come with those
+parts, so setting them cannot be silently ignored.
 """
 from __future__ import annotations
 
@@ -18,6 +18,10 @@ class PrecondOptions:
     itref_tol: float = 1.0e-8       # refinement trigger: rNorm >= tol * xNorm
     force_itref: bool = False       # always run nitref steps
     residual_update: bool = False   # Gould-Hribar-Nocedal residual update
+    apply_df64: bool | str = "auto"  # df64-applied factor at f32
+    #                                  (precond/df_factor.py): "auto" when the
+    #                                  build probe finds the plain f32 apply
+    #                                  unusable, True always, False never
 
     def __post_init__(self):
         object.__setattr__(self, "nitref", max(0, int(round(self.nitref))))

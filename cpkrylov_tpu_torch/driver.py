@@ -8,8 +8,8 @@ Port of ``cpkrylov_tpu/driver.py`` for CPMINRES in the solve's own dtype:
 
 Explicit host blocks are moved to ``device`` once per call: A and B as DIA
 when their natural-order diagonals pass the fill gate (``ops/dia.py``),
-else CSR; C = delta*I as ``Diagonal``.  The JAX package's mixed-precision
-outer refinement (``refine=``, ``solve_mixed``) is not ported yet.
+else CSR; C = delta*I as ``Diagonal``.  ``refine=`` routes the solve
+through the mixed-precision outer refinement (``mixed.solve_mixed``).
 """
 from __future__ import annotations
 
@@ -88,7 +88,7 @@ def solve(method, b, A, B, C, G, *,
           precond_opts: PrecondOptions | None = None,
           backend: str = "auto", ordering="auto", panel: int = 256,
           dtype=None, device="cpu", M: CPPrecond | None = None,
-          refine: bool = False) -> SolveOutput:
+          refine: bool | str = "auto") -> SolveOutput:
     """Solve the regularized saddle-point system [A B'; B -C] [x1;x2] = b.
 
     ``method`` is "cpminres" (or the kernel function).  ``A`` may be a
@@ -96,10 +96,12 @@ def solve(method, b, A, B, C, G, *,
     they form the preconditioner.  Every vector, operator and factor lives
     on ``device``; asking for "cuda" without CUDA raises.  ``dtype``
     defaults to the rhs dtype.  Pass ``M`` to reuse a built preconditioner.
+
+    ``refine`` controls the mixed-precision outer refinement: f32 solves
+    become the inner loop of a true-residual refinement (``solve_mixed``)
+    that reaches the f64 contract.  "auto" enables it exactly for f32
+    solves on a CUDA device with explicit host blocks; True/False force it.
     """
-    if refine:
-        raise NotImplementedError(
-            "mixed-precision refinement is not ported yet")
     opts = opts or SolverOptions()
     if callable(method):
         method = method.__name__
@@ -114,6 +116,31 @@ def solve(method, b, A, B, C, G, *,
     m = C.shape[0]
     if b.shape[0] != n + m:
         raise ValueError(f"rhs has length {b.shape[0]}, expected {n + m}")
+
+    if refine == "auto":
+        refine = (dtype == torch.float32 and device.type == "cuda"
+                  and all(sp.issparse(X) or isinstance(X, np.ndarray)
+                          for X in (A, B, C, G)))
+    if refine:
+        from .mixed import solve_mixed
+        from .solvers.common import STATUS_SOLVED, STATUS_STAGNATED
+
+        mout = solve_mixed(method, b, A, B, C, G, opts=opts,
+                           precond_opts=precond_opts, backend=backend,
+                           ordering=ordering, panel=panel, M=M,
+                           device=device)
+        last = mout.inner_outputs[-1] if mout.inner_outputs else None
+        x = torch.as_tensor(mout.x).to(device)
+        return SolveOutput(
+            x=x, x1=x[:n], x2=x[n:], niters=mout.niters,
+            resid_history=np.asarray(mout.resid_history),
+            solved=bool(mout.solved),
+            istatus=(STATUS_SOLVED if mout.solved else
+                     (last.istatus if last is not None
+                      else STATUS_STAGNATED)),
+            ptime=mout.ptime, stime=mout.stime,
+            result=last.result if last is not None else None,
+            A_op=last.A_op if last is not None else None)
 
     t0 = time.perf_counter()
     if M is None:

@@ -16,7 +16,9 @@ in f32 and f64 alike:
   reach <= 1, with D^-1 folded into the upper solve when every pivot is 1x1;
   blocked substitution (``trisolve.py``) otherwise;
 * K_P: DIA when the natural-order pack passes the fill gate (``ops/dia.py``),
-  else CSR.
+  else CSR;
+* at f32, the df64-applied factor (``df_factor.py``) when the build probe
+  finds the plain f32 apply unusable (or ``apply_df64=True``).
 
 The device decides only kernel (CUDA tensor) or plain version (CPU tensor).
 """
@@ -37,6 +39,7 @@ from ..ops.formats import csr_from_scipy
 from ..utils.device import numpy_dtype, resolve_device, torch_dtype
 from . import ldl_host
 from .cuda_bidiag import build_bidiag_tri, build_bidiag_tri_upper
+from .df_factor import build_df_factor_apply
 from .permute import interleave_candidates, plan_permute
 from .trisolve import build_block_tri, build_block_tri_upper, tri_solve
 
@@ -224,10 +227,12 @@ def _block_dinv(d: np.ndarray, e: np.ndarray | None):
 
 
 def build_factor_apply(fac, N: int, panel: int, dtype, device,
-                       base_order=None) -> FactorApply:
+                       base_order=None, fold_dinv: bool = True
+                       ) -> FactorApply:
     """Pack a host factorization (HostLDL or HostLU) into a ``FactorApply``.
     ``base_order`` is the interleave the ordering was seeded with, applied
-    by reshapes when the final ordering equals it."""
+    by reshapes when the final ordering equals it.  ``fold_dinv=False``
+    keeps D^-1 out of tf2 (the df64 factor models tf2 as plain U)."""
     def dev(a):
         return torch.as_tensor(a).to(device=device, dtype=dtype)
 
@@ -238,7 +243,7 @@ def build_factor_apply(fac, N: int, panel: int, dtype, device,
         U = (fac.L + sp.identity(N)).T.tocsr()
         tf2 = None
         folded = False
-        if sub is None:
+        if sub is None and fold_dinv:
             # U w = D^-1 v is (D U) w = v, and D U keeps the bidiagonal
             # structure: one fewer vector pass per solve on the scan path.
             DU = (sp.diags(fac.d) @ U).tocsr()
@@ -297,8 +302,8 @@ def build_precond(fac, ksp, n: int, m: int, *, options: PrecondOptions,
                   panel: int, dtype, device, base_order=None,
                   factor_nitref: int | None = None) -> CPPrecond:
     """Device preconditioner from a host factorization of ``ksp``, with the
-    build probe that sets ``factor_nitref`` (cp.py:595-624 of the JAX
-    package; its f32 df64-factor swap is not ported)."""
+    build probe that sets ``factor_nitref`` and, at f32, swaps in the
+    df64-applied factor (cp.py:595-685 of the JAX package)."""
     factor = build_factor_apply(fac, n + m, panel, dtype, device,
                                 base_order=base_order)
     nperturbed = int(getattr(fac, "nperturbed", 0))
@@ -319,7 +324,8 @@ def build_precond(fac, ksp, n: int, m: int, *, options: PrecondOptions,
             # One host solve at the device precision measures the factor's
             # residual relative to the right-hand side.
             npd = numpy_dtype(dtype)
-            z = np.random.default_rng(0).standard_normal(n + m)
+            rng = np.random.default_rng(0)
+            z = rng.standard_normal(n + m)
             yh = ldl_host.solve_host(fac, z, dtype=npd)
             rel = (np.linalg.norm(ksp @ np.asarray(yh, np.float64) - z)
                    / max(np.linalg.norm(z), 1e-300))
@@ -328,12 +334,35 @@ def build_precond(fac, ksp, n: int, m: int, *, options: PrecondOptions,
             factor_exact = rel <= thresh
             factor_nitref = 0 if factor_exact else 1
             probe_rel = float(rel)
+            want_df = options.apply_df64
+            if npd == np.float32 and (want_df is True or (
+                    want_df == "auto" and rel > 1e-2)):
+                # The stored f32 factor is unusable as it is (or df64 was
+                # asked for): apply its entries in df64 instead, re-probed
+                # on the device.  The df64 form models tf2 as plain U, so a
+                # folded factor is rebuilt unfolded first.
+                base = factor
+                if factor.dinv_folded:
+                    base = build_factor_apply(fac, n + m, panel, dtype,
+                                              device, base_order=base_order,
+                                              fold_dinv=False)
+                factor = build_df_factor_apply(base, fac, n + m, nref=1)
+                factor_nitref = 0
+                z = rng.standard_normal(n + m)
+                yd = factor.solve(torch.as_tensor(z, dtype=dtype,
+                                                  device=device))
+                rel = (np.linalg.norm(
+                    ksp @ yd.cpu().numpy().astype(np.float64) - z)
+                    / max(np.linalg.norm(z), 1e-300))
+                probe_rel = float(rel)
             if rel > 1e-2:
                 warnings.warn(
                     f"constraint preconditioner: K_P is only coarsely "
                     f"factorable at {npd.name} (probe solve relative "
-                    f"residual {rel:.1e}); solves will need many iterations",
-                    RuntimeWarning, stacklevel=3)
+                    f"residual {rel:.1e}); f32 solves will need many "
+                    "iterations (mixed refinement escalates its inner "
+                    "budget automatically) and the f64 path is the fast "
+                    "route for this system", RuntimeWarning, stacklevel=3)
     return CPPrecond(factor=factor,
                      kp=pack_device_format(ksp, dtype, device),
                      n=int(n), m=int(m), options=options,

@@ -3,7 +3,9 @@
 :func:`device_profile` runs a callable once under the profiler and reads
 the trace it wrote: the wall time of a named span (``SOLVE_SPAN``, which
 ``driver.solve`` opens around the Krylov iteration and its final
-synchronize), the device's busy time inside that span (the union of its
+synchronize; ``MIXED_SPAN``, which ``mixed.solve_mixed`` opens around the
+whole mixed solve; ``MIXED_LOOP_SPAN`` around the device-resident outer loop
+alone, without the per-call packing), the device's busy time inside that span (the union of its
 kernel, memcpy and memset intervals), and the host's kernel launches.  Busy
 time and wall time come from the same trace, so the idle share they give is
 that of the profiled run: the profiler's own host overhead counts as idle,
@@ -22,6 +24,8 @@ import tempfile
 import torch
 
 SOLVE_SPAN = "cpkrylov.solve"   # record_function span around the iteration
+MIXED_SPAN = "cpkrylov.solve_mixed"   # ... around a whole mixed solve
+MIXED_LOOP_SPAN = "cpkrylov.mixed_loop"   # ... around its device loop
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -55,13 +59,14 @@ def union_ms(intervals, lo: float, hi: float) -> float:
     return total / 1e3
 
 
-def summarize_trace(events, table: str = "") -> DeviceProfile:
-    """Read a Chrome-trace event list: the last ``SOLVE_SPAN`` annotation
-    and the device activity and launches inside it."""
-    spans = [e for e in events if e.get("name") == SOLVE_SPAN
+def summarize_trace(events, table: str = "",
+                    span: str = SOLVE_SPAN) -> DeviceProfile:
+    """Read a Chrome-trace event list: the last ``span`` annotation and the
+    device activity and launches inside it."""
+    spans = [e for e in events if e.get("name") == span
              and e.get("cat") == "user_annotation" and e.get("ph") == "X"]
     if not spans:
-        raise ValueError(f"the trace holds no {SOLVE_SPAN!r} span")
+        raise ValueError(f"the trace holds no {span!r} span")
     lo = float(spans[-1]["ts"])
     hi = lo + float(spans[-1]["dur"])
     dev = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
@@ -77,10 +82,11 @@ def summarize_trace(events, table: str = "") -> DeviceProfile:
                          table=table)
 
 
-def device_profile(fn, *, trace_path: str | None = None) -> DeviceProfile:
+def device_profile(fn, *, trace_path: str | None = None,
+                   span: str = SOLVE_SPAN) -> DeviceProfile:
     """Run ``fn()`` once under ``torch.profiler`` (CPU and, when present,
-    CUDA activity) and summarize its last ``SOLVE_SPAN``.  The Chrome
-    trace is kept at ``trace_path`` when one is given."""
+    CUDA activity) and summarize its last ``span``.  The Chrome trace is
+    kept at ``trace_path`` when one is given."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -95,4 +101,4 @@ def device_profile(fn, *, trace_path: str | None = None) -> DeviceProfile:
         prof.export_chrome_trace(path)
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
-    return summarize_trace(events, table)
+    return summarize_trace(events, table, span)

@@ -70,8 +70,8 @@ def test_cvxqp1_history_overlaps_golden(cvxqp1_port):
 def test_banded_matches_jax_dia(dtype):
     s = fixtures.banded_saddle_system(8192, 2048)
     # A plain f32 solve stalls near 1e-4 here (the JAX package's f32 solve
-    # stalls earlier); the f32 route to 1e-6 is the mixed refinement, not
-    # ported yet.  f32 checks the layout and a 1e-3 solve.
+    # stalls earlier); the f32 route to 1e-6 is the mixed refinement
+    # (tests/test_torch_mixed.py).  f32 checks the layout and a 1e-3 solve.
     sopts = dict(atol=0.0, rtol=1e-6 if dtype == torch.float64 else 1e-3,
                  itmax=200)
     out = cpt.solve("cpminres", s.b, s.A, s.B, s.C, s.G,
@@ -119,8 +119,10 @@ def test_entry_point_errors():
         cpt.solve("cpminres", s.b[:-1], s.A, s.B, s.C, s.G)
     with pytest.raises(ValueError, match="unknown solver"):
         cpt.solve("cpfoo", s.b, s.A, s.B, s.C, s.G)
-    with pytest.raises(NotImplementedError):
-        cpt.solve("cpminres", s.b, s.A, s.B, s.C, s.G, refine=True)
+    # refine=True takes the mixed refinement, which needs explicit blocks
+    A_op = cpt.aslinearoperator(lambda v: v, shape=s.A.shape)
+    with pytest.raises(TypeError, match="explicit matrix"):
+        cpt.solve("cpminres", s.b, A_op, s.B, s.C, s.G, refine=True)
 
 
 def test_cuda_request_without_cuda_raises():

@@ -10,7 +10,10 @@ JAX is not installed:
 Tolerances: the DIA kernel rounds every multiply and add in the plain
 version's order, so it must agree bit for bit (f32 1e-6, f64 1e-14 stated
 relative bounds); the bidiagonal scan is held against scipy's sequential
-f64 substitution (f32 1e-5, f64 1e-12 relative 2-norm).
+f64 substitution (f32 1e-5, f64 1e-12 relative 2-norm).  The df64 DIA
+kernel rounds every step of its error-free chain explicitly, so it must
+equal its plain version exactly (hi and lo), and hi + lo must agree with
+scipy's f64 product to 1e-12 relative.
 """
 import numpy as np
 import pytest
@@ -144,3 +147,82 @@ def test_banded_main_path_goes_through_kernels(cuda):
     assert cuda_bidiag.LAUNCHES - scan0 >= 4 * out.niters
     r = s.K @ out.x.cpu().numpy() - s.b
     assert np.linalg.norm(r) <= 1e-6 * np.linalg.norm(s.b)
+
+
+def _df_cases(rng):
+    """Square and rectangular df64 DIA operands whose offsets reach past
+    both ends, with row counts that are not a multiple of the block."""
+    n, m = 20_011, 5_003
+    offs = [-7, -3, -1, 0, 2, 5]
+    A = sp.diags([rng.standard_normal(n - abs(o)) for o in offs], offs,
+                 format="csr")
+    B = sp.diags([1.0 + rng.random(m), rng.standard_normal(m)], [0, 1],
+                 shape=(m, n), format="csr")
+    far = sp.diags([rng.standard_normal(n - 12_000), rng.standard_normal(n)],
+                   [-12_000, 0], shape=(n, n), format="csr")
+    return {"A": A, "B": B, "Bt": B.T.tocsr(), "far": far}
+
+
+def test_df_dia_kernel_matches_plain_bitwise(cuda):
+    from cpkrylov_tpu_torch.ops import cuda_df_dia
+    from cpkrylov_tpu_torch.ops.df64 import (df_dia_matvec, df_from_f64,
+                                             pack_df_dia)
+
+    rng = np.random.default_rng(3)
+    for name, mat in _df_cases(rng).items():
+        d = pack_df_dia(mat, device=cuda)
+        assert d is not None, name
+        x = rng.standard_normal(mat.shape[1]) * 1e3
+        xh, xl = (torch.as_tensor(v).to(cuda) for v in df_from_f64(x))
+        before = cuda_df_dia.LAUNCHES
+        yh, yl = cuda_df_dia.df_dia_spmv(d, xh, xl)
+        assert cuda_df_dia.LAUNCHES == before + 1
+        ph, pl = df_dia_matvec(d, (xh, xl))
+        torch.cuda.synchronize()
+        assert torch.equal(yh, ph) and torch.equal(yl, pl), name
+        y = yh.double().cpu().numpy() + yl.double().cpu().numpy()
+        exact = mat @ x
+        assert (np.linalg.norm(y - exact) / np.linalg.norm(exact)
+                <= 1e-12), name
+
+
+def test_df_dia_wrapper_raises_on_bad_operands(cuda):
+    from cpkrylov_tpu_torch.ops.cuda_df_dia import df_dia_spmv
+    from cpkrylov_tpu_torch.ops.df64 import pack_df_dia
+
+    A = sp.diags([np.ones(100), np.ones(99)], [0, 1], format="csr")
+    d = pack_df_dia(A, device=cuda)
+    one = torch.ones(100, dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):
+        df_dia_spmv(d, one.double(), one)
+    with pytest.raises(ValueError):
+        df_dia_spmv(d, one[:99], one[:99])
+    with pytest.raises(ValueError):
+        df_dia_spmv(d, torch.ones(200, device=cuda)[::2], one)
+    with pytest.raises(ValueError):
+        df_dia_spmv(d, one, one.cpu())
+    d_cpu = pack_df_dia(A, device="cpu")
+    with pytest.raises(ValueError):
+        df_dia_spmv(d_cpu, one, one)
+
+
+def test_mixed_device_loop_goes_through_kernels(cuda):
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.ops import cuda_df_dia, cuda_dia
+    from cpkrylov_tpu_torch.precond import cuda_bidiag
+    from cpkrylov_tpu_torch.utils import fixtures
+
+    s = fixtures.banded_saddle_system(20_000, 5_000)
+    M = cpt.make_preconditioner(s.G, s.B, s.C, dtype=torch.float32,
+                                device=cuda)
+    c0 = (cuda_df_dia.LAUNCHES, cuda_dia.LAUNCHES, cuda_bidiag.LAUNCHES)
+    out = cpt.solve_mixed(
+        "cpminres", s.b, s.A, s.B, s.C, s.G, M=M, device=cuda,
+        device_resident=True, inner_stagwin=25,
+        opts=cpt.SolverOptions(atol=0.0, rtol=1e-8, itmax=200, stagwin=25))
+    assert out.solved and out.inner_outputs == ()
+    assert cuda_df_dia.LAUNCHES - c0[0] >= 3 * out.nouter
+    assert cuda_dia.LAUNCHES - c0[1] >= out.niters
+    assert cuda_bidiag.LAUNCHES - c0[2] >= 2 * out.niters
+    r = s.K @ out.x - s.b
+    assert np.linalg.norm(r) <= 1e-8 * np.linalg.norm(s.b)

@@ -10,8 +10,8 @@ Phases, one line each; any failure raises and the script exits non-zero
 before its last line:
 
 1. device: torch and CUDA versions, the card's name and power limit;
-2. build: compile the CUDA kernels from ``cpkrylov_tpu_torch/csrc`` (nvcc,
-   sm_90a) and report the seconds taken;
+2. build: compile the CUDA kernels from ``cpkrylov_tpu_torch/csrc`` (one
+   nvcc per source, all started together, sm_90a) and report the seconds;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (DIA SpMV on A, K_P and B of the 1M x 250k banded
    system in f32 and f64; the bidiagonal scan forward and reverse at
@@ -19,29 +19,49 @@ before its last line:
    against scipy in f64; the df64 DIA SpMV on A, B and B' of the same
    system, bit for bit against its plain version and to 1e-12 against
    scipy's f64 product), with times from CUDA events;
-4. golden: CPMINRES on the shipped ``cvxqp1_m`` fixture in f64 on the card,
+4. mm setup: the Maros-Meszaros systems AUG2D-L and CVXQP3-L
+   (``utils/mm.py``), their host LDL^T and device packing, timed;
+5. mm kernels: the banded triangular solve (B4) with its affine scan (B6)
+   on both triangles of AUG2D-L's factor (p = 632, r = 631, nb = 473), f32
+   and f64, against their plain versions and scipy's
+   ``spsolve_triangular``; the CSR SpMV (B5) on AUG2D-L's K_P and
+   CVXQP3-L's A, f32 and f64, bit for bit against its plain version and
+   against scipy; ``torch.sparse.mm`` timed beside B5 and B1;
+6. golden: CPMINRES on the shipped ``cvxqp1_m`` fixture in f64 on the card,
    53 +- 2 iterations and rel-err < 5e-6 against scipy ``spsolve``;
-5. golden_mixed: ``solve_mixed`` on ``cvxqp1_m`` with f32 inner solves to
-   1e-8, through the df64-applied factor, rel-err < 1e-7, <= 5 passes;
-6. main path: ``make_preconditioner`` + ``solve("cpminres", ...)`` in f64 on
+7. golden_mixed: ``solve_mixed`` on ``cvxqp1_m`` with f32 inner solves to
+   1e-8, through the df64-applied factor, rel-err < 1e-7, <= 5 passes; run
+   twice, and the two runs' inner counts must agree (no atomics);
+8. main path: ``make_preconditioner`` + ``solve("cpminres", ...)`` in f64 on
    the card for ``banded_saddle_system(1_000_000, 250_000, bandwidth=3)``
    at rtol 1e-6, checked by a host f64 true residual and by the kernels'
    launch counters (reset just before the main path starts);
-7. main_mixed: the f32-inner / df64-outer mixed solve of the same system,
+9. main_mixed: the f32-inner / df64-outer mixed solve of the same system,
    device-resident, at the JAX bench's settings (``bench.py:148-154,
    183-184``); run twice, the second (warm) run checked by a host f64 true
-   residual and by the launch counters (reset just before it).
+   residual and by the launch counters (reset just before it);
+10. mm_aug2d_l / mm_cvxqp3_l: ``solve("cpminres", ...)`` in f64 at the JAX
+   Maros-Meszaros sweep's settings (``benchmarks/bench_mm_sweep.py``:
+   atol = rtol = 1e-6, itmax 1000, default ``PrecondOptions()``), the
+   counters reset just before each solve; checked against the sweep's
+   records (``benchmarks/MM_SWEEP_L.json``: 5 and 86 iterations, and the
+   error of the JAX package's solution against scipy's ``spsolve``), by
+   the factor forms, the solver's stopping test on its own history, a host
+   f64 true residual (at its measured multiple of atol + rtol |b|) and the
+   counters.
 
 With ``--profile DIR`` it then profiles one more warm solve of each main
-path under ``torch.profiler``, prints the device's busy time and idle share
-inside the solve span of each trace (``cpkrylov.solve``, and
-``cpkrylov.solve_mixed`` with its device loop ``cpkrylov.mixed_loop``),
-and writes the traces (``profile_main.json``,
-``profile_mixed.json``) and per-op tables (``.txt``) into DIR.
+path and of both Maros-Meszaros systems under ``torch.profiler``, prints
+the device's busy time and idle share inside the solve span of each trace
+(``cpkrylov.solve``, and ``cpkrylov.solve_mixed`` with its device loop
+``cpkrylov.mixed_loop``), and writes the main paths' traces (``profile_main.json``,
+``profile_mixed.json``) and every run's per-op table (``.txt``) into DIR.
 
-Then a JSON line of per-kernel results, the card line from ``nvidia-smi``,
-and as the last line ``{"ok": true, "device": {...}}``.  Without CUDA, or
-without the package beside it, it exits non-zero and prints no result.
+Then a JSON line of per-kernel results (time, plain version's time, the
+bound from this run's shapes, the library call's time where one exists,
+launches per path), the card line from ``nvidia-smi``, and as the last line
+``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
+beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -65,6 +85,50 @@ SCAN_TOL = {"float32": 1e-5, "float64": 1e-12}
 # carries ~2^-48 relative accuracy, held against scipy's f64 product.
 DF_SCIPY_TOL = 1e-12
 
+# Banded triangular solve (B4) and its scan (B6) on AUG2D-L's factor:
+# relative 2-norm against the plain version and against scipy's sequential
+# f64 substitution.  The factor carries element growth (solutions up to
+# ~1e8 for a unit right-hand side), so rounding is amplified: on the H100
+# B4 measured 1.7e-12 / 3.2e-13 (f64, L / reversed U) and 4.8e-5 / 1.2e-4
+# (f32) against scipy, 3.1e-13 and 7.0e-5 at most against its plain
+# version, and B6 0 against its plain version; each bound is about 10x the
+# largest reading of its dtype.
+BAND_TOL = {"float32": 1e-3, "float64": 2e-11}
+# CSR SpMV (B5): the kernel sums each row in stored order, every step
+# rounded, as its plain version does: exact.  Against scipy's f64 product:
+# f32 rounding of rows of at most 10 products (f64 is exact in principle;
+# the bound leaves room for one rounding per term).
+CSR_SCIPY_TOL = {"float32": 1e-6, "float64": 1e-14}
+
+# Bounds: the larger of bytes over the card's memory rate and operations
+# over its peak rate for their type.  3.35 TB/s and 67 TFLOP/s f32 outside
+# the tensor cores are the H100 SXM figures of NVIDIA's data sheet; for f64
+# the data sheet's 67 TFLOP/s (FP64 tensor core) is the highest rate the
+# card offers, so the bound stays a lower bound.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+
+# The JAX Maros-Meszaros sweep's settings (benchmarks/bench_mm_sweep.py)
+# and its f64 CPMINRES records (benchmarks/MM_SWEEP_L.json): iterations,
+# +-, and the solution's relative error against scipy's spsolve.
+MM_SOLVER = dict(atol=1e-6, rtol=1e-6, itmax=1000)
+MM_RECORD = {"aug2d_l": (5, 2, 3.6866635621552876e-09),
+             "cvxqp3_l": (86, 5, 8.325103533499263e-04)}
+# The error against spsolve may exceed the record by 10 %: the port and the
+# JAX package reach the same error to 1e-6 relative on the CPU at AUG2D
+# grids 40 and 100 and CVXQP3 n = 2000, and the JAX package there
+# reproduces its AUG2D-M record (tests/test_torch_mm.py).
+MM_ORACLE_SLACK = 1.1
+# |b - K x| over atol + rtol |b|.  CPMINRES stops on its preconditioned
+# residual, so the true one is not bounded by the contract: both packages
+# end at 0.1115, 0.2262 and 1.2872 times it at AUG2D grids 40 and 100 and
+# CVXQP3 n = 2000 (tests/test_torch_mm.py).  The card measured 1.0427
+# (AUG2D-L; the CPU's plain versions from the same factor too) and 0.9298
+# (CVXQP3-L); each limit leaves 0.7-7.5 % above its reading.
+MM_TRUE_RESID = {"aug2d_l": 1.05, "cvxqp3_l": 1.0}
+# AUG2D-L's factor in the JAX package's rule: reach 631, p0 = 632
+MM_AUG_PANEL = (632, 631)
+
 # The JAX bench's mixed configuration (bench.py:148-154, 183-184).
 MIXED_SOLVER = dict(atol=0.0, rtol=1e-6, itmax=200, stagwin=25)
 MIXED_INNER_STAGWIN = 25
@@ -83,6 +147,38 @@ def rel_max(got, ref) -> float:
 
     scale = float(torch.max(torch.abs(ref)))
     return float(torch.max(torch.abs(got - ref))) / max(scale, 1e-300)
+
+
+def rel_2norm(got, ref) -> float:
+    import numpy as np
+
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref),
+                                                 1e-300))
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str):
+    """(ms, "bytes" or "operations"): the least time for the work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def torch_sparse_csr(mat, dtype, device):
+    """A scipy matrix as a torch sparse CSR tensor: the operand of the
+    library call timed beside the port's SpMV kernels (never used by the
+    port itself)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    c = sp.csr_matrix(mat)
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(c.indptr.astype(np.int64)),
+        torch.as_tensor(c.indices.astype(np.int64)),
+        torch.as_tensor(c.data), size=c.shape).to(device=device, dtype=dtype)
 
 
 def phase_kernels(sysm, device, results):
@@ -128,7 +224,17 @@ def phase_kernels(sysm, device, results):
                 raise RuntimeError(f"dia_spmv {tname} {label}: relative "
                                    f"error {err:.3e} > {DIA_TOL[tname]}")
             if label == "A" and dtype == torch.float64:
+                sa = torch_sparse_csr(mat, dtype, device)
+                xs = x[:, None]
+                dia["library_ms"] = cuda_time_ms(
+                    lambda: torch.sparse.mm(sa, xs))
                 dia["ms"], dia["plain_ms"] = ms, pms
+                dia["bound_ms"], dia["bound_by"] = bound_ms(
+                    8 * (d.ndiag * mat.shape[0] + mat.shape[1]
+                         + mat.shape[0]), 2 * mat.nnz, tname)
+                print(f"kernel dia_spmv bound_ms={dia['bound_ms']:.4f} "
+                      f"({dia['bound_by']}) library_ms(torch.sparse.mm)="
+                      f"{dia['library_ms']:.4f}", flush=True)
 
     scan = results["bidiag_scan"]
     for n in (1_250_000, 1_000_003):
@@ -175,6 +281,9 @@ def phase_kernels(sysm, device, results):
                 if (n == 1_250_000 and not reverse
                         and dtype == torch.float64):
                     scan["ms"], scan["plain_ms"] = ms, pms
+                    # a, invd and b read, x written; 3 operations a row
+                    scan["bound_ms"], scan["bound_by"] = bound_ms(
+                        4 * 8 * n, 3 * n, tname)
 
     dfd = results["df_dia_spmv"]
     for label, mat in (("A", sysm.A), ("B", sysm.B), ("Bt", sysm.B.T.tocsr())):
@@ -208,6 +317,292 @@ def phase_kernels(sysm, device, results):
                                f"{err_ref:.3e} vs scipy > {DF_SCIPY_TOL}")
         if label == "A":
             dfd["ms"], dfd["plain_ms"] = ms, pms
+            # (hi, lo) diagonals and x and y pairs; about 30 f32 operations
+            # per stored entry for the error-free product and sum
+            dfd["bound_ms"], dfd["bound_by"] = bound_ms(
+                2 * 4 * (d.ndiag * mat.shape[0] + mat.shape[1]
+                         + mat.shape[0]), 30 * mat.nnz, "float32")
+
+
+def phase_mm_setup(device):
+    """AUG2D-L and CVXQP3-L: generation, host LDL^T and device packing, each
+    timed.  ``factorize_kp`` + ``build_precond`` are the two halves of
+    ``make_preconditioner`` (with its defaults); the host factor is kept for
+    the scipy references of the mm kernels phase."""
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.precond.cp import build_precond, factorize_kp
+    from cpkrylov_tpu_torch.utils.mm import aug_kkt, cvxqp_kkt
+
+    out = {}
+    for name, make in (("aug2d_l", lambda: aug_kkt("2d", "l")),
+                       ("cvxqp3_l", lambda: cvxqp_kkt("cvxqp3", "l"))):
+        t0 = time.perf_counter()
+        sysm = make()
+        t1 = time.perf_counter()
+        hf = factorize_kp(sysm.G, sysm.B, sysm.C)
+        t2 = time.perf_counter()
+        M = build_precond(hf.fac, hf.ksp, hf.n, hf.m,
+                          options=cpt.PrecondOptions(), panel=256,
+                          dtype=torch.float64, device=device,
+                          base_order=hf.base_order)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        f = M.factor
+        setup = {"generate_s": t1 - t0, "ldl_s": t2 - t1, "pack_s": t3 - t2}
+        low = hf.fac.L.tocoo()
+        reach = int((low.row - low.col).max()) if low.nnz else 0
+        print(f"mm_setup {name} n={sysm.n} m={sysm.m} nnz_K={sysm.K.nnz} "
+              f"nnz_L={hf.fac.L.nnz} reach={reach} ordering="
+              f"{'rcm' if hf.base_order is None else 'interleave'} "
+              f"tf1={type(f.tf1).__name__}(panel={f.tf1.panel}, "
+              f"r={getattr(f.tf1, 'r', None)}) tf2={type(f.tf2).__name__}"
+              f"(panel={f.tf2.panel}, r={getattr(f.tf2, 'r', None)}) "
+              f"kp={type(M.kp).__name__} factor_nitref={M.factor_nitref} "
+              f"generate_s={setup['generate_s']:.2f} "
+              f"ldl_s={setup['ldl_s']:.2f} pack_s={setup['pack_s']:.2f} "
+              f"device_gib={torch.cuda.memory_allocated() / 2**30:.2f}",
+              flush=True)
+        out[name] = (sysm, hf, M, setup)
+    return out
+
+
+def phase_mm_kernels(mm, device, results):
+    """B4 and B6 on both triangles of AUG2D-L's factor, B5 on AUG2D-L's K_P
+    and CVXQP3-L's A, f32 and f64."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from cpkrylov_tpu_torch.ops.cuda_spmv import csr_matvec_plain, csr_spmv
+    from cpkrylov_tpu_torch.ops.formats import csr_from_scipy
+    from cpkrylov_tpu_torch.precond.cuda_tri import (affine_scan,
+                                                     affine_scan_plain,
+                                                     band_tri_solve,
+                                                     band_tri_solve_plain)
+    from cpkrylov_tpu_torch.precond.trisolve import ReducedScanTriFactor
+    from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
+
+    _, hf, M, _ = mm["aug2d_l"]
+    N = hf.n + hf.m
+    L1 = (hf.fac.L + sp.identity(N, format="csc")).tocsr()
+    U = L1.T.tocsr()
+    rng = np.random.default_rng(11)
+    b = rng.standard_normal(N).astype(np.float32).astype(np.float64)
+    t0 = time.perf_counter()
+    ref = {"L": spla.spsolve_triangular(L1, b, lower=True),
+           "U": spla.spsolve_triangular(U, b, lower=False)}
+    print(f"kernel band_tri scipy_reference_s={time.perf_counter() - t0:.2f}"
+          f" nnz_L1={L1.nnz}", flush=True)
+    del L1, U
+    tri, scan = results["band_tri"], results["affine_scan"]
+    for label, tf64 in (("L", M.factor.tf1), ("U", M.factor.tf2)):
+        if not isinstance(tf64, ReducedScanTriFactor):
+            raise RuntimeError(f"AUG2D-L {label}: factor is "
+                               f"{type(tf64).__name__}, not the B4 form")
+        for dtype in (torch.float64, torch.float32):
+            tname = str(dtype).split(".")[1]
+            tf = tf64 if dtype == torch.float64 else ReducedScanTriFactor(
+                inv_diag=tf64.inv_diag.float(), w_blocks=tf64.w_blocks.float(),
+                n=tf64.n, panel=tf64.panel, r=tf64.r)
+            # the upper triangle's B4 form solves J U J: flip around it
+            bd = torch.as_tensor(b if label == "L" else b[::-1].copy()).to(
+                device=device, dtype=dtype)
+            xk = band_tri_solve(tf, bd)
+            xp = band_tri_solve_plain(tf, bd)
+            torch.cuda.synchronize()
+            err_abs = float(torch.max(torch.abs(xk - xp)))
+            xk = xk.double().cpu().numpy()
+            xp = xp.double().cpu().numpy()
+            if label == "U":
+                xk, xp = xk[::-1], xp[::-1]
+            err_plain = rel_2norm(xk, xp)
+            err_ref = rel_2norm(xk, ref[label])
+            ms = cuda_time_ms(lambda: band_tri_solve(tf, bd), iters=20,
+                              warmup=3)
+            pms = cuda_time_ms(lambda: band_tri_solve_plain(tf, bd),
+                               iters=3, warmup=1)
+            p, r, nb = tf.panel, tf.r, tf.nblocks
+            print(f"kernel band_tri {tname} {label} n={tf.n} panel={p} r={r}"
+                  f" nb={nb} rel_err_vs_plain={err_plain:.3e} "
+                  f"rel_err_vs_scipy_f64={err_ref:.3e} "
+                  f"max_abs_err_vs_plain={err_abs:.3e} "
+                  f"max_abs_x={np.max(np.abs(ref[label])):.3e} ms={ms:.4f} "
+                  f"plain_ms={pms:.4f}", flush=True)
+            for what, e in (("plain", err_plain), ("scipy", err_ref)):
+                if not e <= BAND_TOL[tname]:
+                    raise RuntimeError(f"band_tri {tname} {label}: error vs "
+                                       f"{what} {e:.3e} > {BAND_TOL[tname]}")
+            if dtype == torch.float64:      # the dtype of the path's solves
+                tri["max_abs_err"] = max(tri["max_abs_err"], err_abs)
+
+            # B6 alone on this triangle's scan operands (W's negated tail
+            # rows, c's tail entries), lane-major views as its contract has
+            c = torch.zeros(nb * p, dtype=dtype, device=device)
+            c[:tf.n] = bd
+            c = torch.bmm(tf.inv_diag, c.view(nb, p, 1)).view(nb, p)
+            mr = (-tf.w_blocks[:, p - r:, :]).permute(1, 2, 0)
+            cr = c[:, p - r:].T
+            sk = affine_scan(mr, cr)
+            sp_ = affine_scan_plain(mr, cr)
+            torch.cuda.synchronize()
+            serr_abs = float(torch.max(torch.abs(sk - sp_)))
+            serr = rel_2norm(sk.double().cpu().numpy(),
+                             sp_.double().cpu().numpy())
+            sms = cuda_time_ms(lambda: affine_scan(mr, cr), iters=20,
+                               warmup=3)
+            spms = cuda_time_ms(lambda: affine_scan_plain(mr, cr), iters=3,
+                                warmup=1)
+            print(f"kernel affine_scan {tname} {label} r={r} nb={nb} "
+                  f"rel_err_vs_plain={serr:.3e} max_abs_err={serr_abs:.3e} "
+                  f"ms={sms:.4f} plain_ms={spms:.4f}", flush=True)
+            if not serr <= BAND_TOL[tname]:
+                raise RuntimeError(f"affine_scan {tname} {label}: error vs "
+                                   f"plain {serr:.3e} > {BAND_TOL[tname]}")
+            if dtype == torch.float64:
+                scan["max_abs_err"] = max(scan["max_abs_err"], serr_abs)
+            if label == "L" and dtype == torch.float64:
+                tri["ms"], tri["plain_ms"] = ms, pms
+                tri["bound_ms"], tri["bound_by"] = bound_ms(
+                    8 * (nb * p * p + nb * p * r + 2 * tf.n),
+                    2 * nb * (p * p + p * r + r * r), tname)
+                scan["ms"], scan["plain_ms"] = sms, spms
+                scan["bound_ms"], scan["bound_by"] = bound_ms(
+                    8 * (nb * r * r + 2 * nb * r), 2 * nb * r * r, tname)
+                print(f"kernel band_tri bound_ms={tri['bound_ms']:.4f} "
+                      f"({tri['bound_by']}) affine_scan bound_ms="
+                      f"{scan['bound_ms']:.4f} ({scan['bound_by']})",
+                      flush=True)
+            del c, mr, cr, sk, sp_, bd
+            if dtype == torch.float32:
+                del tf
+            torch.cuda.empty_cache()
+
+    csr = results["csr_spmv"]
+    cvx = mm["cvxqp3_l"][0]
+    for dtype in (torch.float64, torch.float32):
+        tname = str(dtype).split(".")[1]
+        for label, mat in (("K_P aug2d_l", hf.ksp), ("A cvxqp3_l", cvx.A)):
+            c = csr_from_scipy(mat, dtype, device)
+            x64 = rng.standard_normal(mat.shape[1])
+            x = torch.as_tensor(x64).to(device=device, dtype=dtype)
+            yk = csr_spmv(c, x)
+            yk2 = csr_spmv(c, x)
+            yp = csr_matvec_plain(c, x)
+            torch.cuda.synchronize()
+            err_abs = float(torch.max(torch.abs(yk - yp)))
+            err_ref = rel_2norm(yk.double().cpu().numpy(),
+                                mat @ x.double().cpu().numpy())
+            ms = cuda_time_ms(lambda: csr_spmv(c, x))
+            pms = cuda_time_ms(lambda: csr_matvec_plain(c, x), iters=20,
+                               warmup=2)
+            sa = torch_sparse_csr(mat, dtype, device)
+            xs = x[:, None]
+            lms = cuda_time_ms(lambda: torch.sparse.mm(sa, xs))
+            print(f"kernel csr_spmv {tname} {label} {mat.shape[0]}x"
+                  f"{mat.shape[1]} nnz={c.nnz} max_abs_err_vs_plain="
+                  f"{err_abs:.3e} repeat_equal={torch.equal(yk, yk2)} "
+                  f"rel_err_vs_scipy_f64={err_ref:.3e} ms={ms:.4f} "
+                  f"plain_ms={pms:.4f} library_ms(torch.sparse.mm)={lms:.4f}",
+                  flush=True)
+            if err_abs != 0.0 or not torch.equal(yk, yk2):
+                raise RuntimeError(f"csr_spmv {tname} {label}: differs from "
+                                   "its plain version or between runs")
+            if not err_ref <= CSR_SCIPY_TOL[tname]:
+                raise RuntimeError(f"csr_spmv {tname} {label}: error vs "
+                                   f"scipy {err_ref:.3e}")
+            if label.startswith("K_P") and dtype == torch.float64:
+                nrows, ncols = mat.shape
+                csr["ms"], csr["plain_ms"], csr["library_ms"] = ms, pms, lms
+                csr["bound_ms"], csr["bound_by"] = bound_ms(
+                    12 * c.nnz + 8 * (nrows + 1) + 8 * (ncols + nrows),
+                    2 * c.nnz, tname)
+                print(f"kernel csr_spmv bound_ms={csr['bound_ms']:.4f} "
+                      f"({csr['bound_by']})", flush=True)
+            del c, sa
+
+
+def phase_mm_solve(name, sysm, M, setup, device):
+    """CPMINRES in f64 on one Maros-Meszaros system at the sweep's
+    settings, the kernels' counters reset just before the solve."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.ops.formats import CSR
+    from cpkrylov_tpu_torch.precond.trisolve import (BlockTriFactor,
+                                                     ReducedScanTriFactor)
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    opts = cpt.SolverOptions(**MM_SOLVER)
+    reset_launches()
+    out = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
+                    opts=opts, M=M, dtype=torch.float64, device=device)
+    launches = launch_counts()
+    x = out.x.cpu().numpy()
+    bnorm = float(np.linalg.norm(sysm.b))
+    rnorm = float(np.linalg.norm(sysm.b - sysm.K @ x))
+    contract = MM_SOLVER["atol"] + MM_SOLVER["rtol"] * bnorm
+    t0 = time.perf_counter()
+    x_direct = spla.spsolve(sysm.K.tocsc(), sysm.b)
+    direct_s = time.perf_counter() - t0
+    oracle = rel_2norm(x, x_direct)
+    hist = out.resid_history
+    f = M.factor
+    print(f"{name} cpminres f64 n={sysm.n} m={sysm.m} solved={out.solved} "
+          f"iters={out.niters} true_resid={rnorm:.4e} "
+          f"true_rel_resid={rnorm / bnorm:.3e} "
+          f"contract(atol+rtol*|b|)={contract:.4e} "
+          f"contract_met={rnorm <= contract} "
+          f"true_resid_over_contract={rnorm / contract:.4f} "
+          f"err_vs_spsolve={oracle:.4e} (JAX record "
+          f"{MM_RECORD[name][2]:.4e}, spsolve_s={direct_s:.2f}) "
+          f"precond_resid={hist[-1]:.4e}/{hist[0]:.4e} "
+          f"tf={type(f.tf1).__name__}(panel={f.tf1.panel}) "
+          f"A={type(getattr(out.A_op, 'mat', None)).__name__} "
+          f"kp={type(M.kp).__name__} "
+          f"generate_s={setup['generate_s']:.2f} ldl_s={setup['ldl_s']:.2f} "
+          f"pack_s={setup['pack_s']:.2f} stime_s={out.stime:.4f} "
+          f"ms_per_iter={1e3 * out.stime / max(out.niters, 1):.3f} "
+          f"launches={launches}", flush=True)
+    target, slack, oracle_record = MM_RECORD[name]
+    if not out.solved:
+        raise RuntimeError(f"{name} not solved: status {out.istatus}")
+    if abs(out.niters - target) > slack:
+        raise RuntimeError(f"{name}: {out.niters} iterations, the JAX record "
+                           f"is {target} +- {slack}")
+    if not (np.all(np.isfinite(x)) and x.shape == (sysm.n + sysm.m,)):
+        raise RuntimeError(f"{name}: solution not finite or wrong shape")
+    if not hist[-1] <= MM_SOLVER["atol"] + MM_SOLVER["rtol"] * hist[0]:
+        raise RuntimeError(f"{name}: the solver's stopping test does not "
+                           "hold on its own history")
+    if not isinstance(M.kp, CSR) or launches["csr_spmv"] < out.niters:
+        raise RuntimeError(f"{name}: K_P is {type(M.kp).__name__}, "
+                           f"{launches['csr_spmv']} B5 launches")
+    if name == "aug2d_l":
+        ok = all(isinstance(t, ReducedScanTriFactor)
+                 and (t.panel, t.r) == MM_AUG_PANEL for t in (f.tf1, f.tf2))
+        if not ok:
+            raise RuntimeError("aug2d_l: the factor is not the B4 form with "
+                               "p = 632, r = 631")
+        for kname in ("band_tri", "affine_scan"):
+            if launches[kname] < 2 * out.niters:
+                raise RuntimeError(f"aug2d_l: {kname} launched "
+                                   f"{launches[kname]} times")
+    elif not all(isinstance(t, BlockTriFactor) for t in (f.tf1, f.tf2)):
+        raise RuntimeError("cvxqp3_l: the factor is not blocked "
+                           "substitution, as in the JAX package")
+    if not oracle <= MM_ORACLE_SLACK * oracle_record:
+        raise RuntimeError(f"{name}: error against spsolve {oracle:.4e}, the "
+                           f"JAX record is {oracle_record:.4e}")
+    if not rnorm <= MM_TRUE_RESID[name] * contract:
+        raise RuntimeError(f"{name}: true residual {rnorm:.4e} > "
+                           f"{MM_TRUE_RESID[name]} x {contract:.4e}")
+    return launches
 
 
 def phase_main_path(sysm, device):
@@ -215,15 +610,15 @@ def phase_main_path(sysm, device):
     import torch
 
     import cpkrylov_tpu_torch as cpt
-    from cpkrylov_tpu_torch.ops import cuda_dia
     from cpkrylov_tpu_torch.ops.dia import DIA
     from cpkrylov_tpu_torch.precond import cuda_bidiag
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
 
     popts = cpt.PrecondOptions(residual_update=True, nitref=1,
                                force_itref=True)
     opts = cpt.SolverOptions(atol=0.0, rtol=1e-6, itmax=200)
-    cuda_dia.LAUNCHES = 0
-    cuda_bidiag.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     M = cpt.make_preconditioner(sysm.G, sysm.B, sysm.C, options=popts,
                                 dtype=torch.float64, device=device)
@@ -241,8 +636,7 @@ def phase_main_path(sysm, device):
     out = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
                     device=device, dtype=torch.float64, opts=opts,
                     precond_opts=popts, M=M)
-    launches = {"dia_spmv": cuda_dia.LAUNCHES,
-                "bidiag_scan": cuda_bidiag.LAUNCHES}
+    launches = launch_counts()
     if not isinstance(getattr(out.A_op, "mat", None), DIA):
         raise RuntimeError(
             f"the solve applied A as {type(out.A_op).__name__}("
@@ -263,14 +657,15 @@ def phase_main_path(sysm, device):
         raise RuntimeError("main path solution not finite or wrong shape")
     if not true_rel <= 1e-6:
         raise RuntimeError(f"true residual {true_rel:.3e} > 1e-6")
-    for name, count in launches.items():
+    for name in ("dia_spmv", "bidiag_scan"):
+        count = launches[name]
         if count < 4 * out.niters:
             raise RuntimeError(f"{name} launched {count} times in "
                                f"{out.niters} iterations (< 4 per iter)")
     return launches, M
 
 
-def phase_profile(sysm, device, M, M32, outdir):
+def phase_profile(sysm, device, M, M32, mm, outdir):
     import torch
 
     import cpkrylov_tpu_torch as cpt
@@ -294,10 +689,20 @@ def phase_profile(sysm, device, M, M32, outdir):
             opts=cpt.SolverOptions(**MIXED_SOLVER),
             inner_stagwin=MIXED_INNER_STAGWIN)),
     }
+    for name in ("aug2d_l", "cvxqp3_l"):
+        msys, _, mM, _ = mm[name]
+        runs["mm_" + name] = (
+            "profile_mm_" + name, SOLVE_SPAN,
+            lambda msys=msys, mM=mM: cpt.solve(
+                "cpminres", msys.b, msys.A, msys.B, msys.C, msys.G,
+                opts=cpt.SolverOptions(**MM_SOLVER), M=mM,
+                dtype=torch.float64, device=device))
     for name, (stem, span, fn) in runs.items():
         outs = []
-        prof = device_profile(lambda: outs.append(fn()),
-                              trace_path=os.path.join(outdir, stem + ".json"),
+        # the Maros-Meszaros traces run to tens of MB: their tables only
+        trace = (None if name.startswith("mm_")
+                 else os.path.join(outdir, stem + ".json"))
+        prof = device_profile(lambda: outs.append(fn()), trace_path=trace,
                               span=span)
         with open(os.path.join(outdir, stem + ".txt"), "w") as fh:
             fh.write(prof.table)
@@ -359,6 +764,8 @@ def phase_golden_mixed(device):
     import cpkrylov_tpu_torch as cpt
     from cpkrylov_tpu_torch.precond.df_factor import DFFactorApply
     from cpkrylov_tpu_torch.utils.fixtures import load_fixture
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
 
     fix = load_fixture("cvxqp1_m")
     popts = cpt.PrecondOptions(residual_update=True, nitref=1,
@@ -368,20 +775,34 @@ def phase_golden_mixed(device):
     if not isinstance(M32.factor, DFFactorApply):
         raise RuntimeError("cvxqp1_m f32: the df64-applied factor is not "
                            f"engaged (probe {M32.probe_rel:.3e})")
-    out = cpt.solve_mixed(
-        "cpminres", fix.b, fix.A, fix.B, fix.C, fix.G, M=M32, device=device,
-        opts=cpt.SolverOptions(atol=1e-8, rtol=1e-8, itmax=500),
-        precond_opts=popts)
     x_ref = spla.spsolve(fix.K.tocsc(), fix.b)
-    rel = float(np.linalg.norm(out.x - x_ref) / np.linalg.norm(x_ref))
-    loop = "host" if out.inner_outputs else "device"
-    print(f"golden_mixed cvxqp1_m cpminres f32-inner solved={out.solved} "
-          f"factor=DFFactorApply probe_rel={M32.probe_rel:.3e} "
-          f"loop={loop} nouter={out.nouter} inner={list(out.inner_niters)} "
-          f"niters={out.niters} rel_err={rel:.3e} "
-          f"stime_s={out.stime:.4f}", flush=True)
-    if not (out.solved and rel < 1e-7 and out.nouter <= 5):
-        raise RuntimeError("golden_mixed cvxqp1_m check failed")
+    inner = []
+    for run in (1, 2):
+        reset_launches()
+        out = cpt.solve_mixed(
+            "cpminres", fix.b, fix.A, fix.B, fix.C, fix.G, M=M32,
+            device=device,
+            opts=cpt.SolverOptions(atol=1e-8, rtol=1e-8, itmax=500),
+            precond_opts=popts)
+        launches = launch_counts()
+        rel = float(np.linalg.norm(out.x - x_ref) / np.linalg.norm(x_ref))
+        loop = "host" if out.inner_outputs else "device"
+        print(f"golden_mixed cvxqp1_m cpminres f32-inner run={run} "
+              f"solved={out.solved} factor=DFFactorApply "
+              f"probe_rel={M32.probe_rel:.3e} loop={loop} "
+              f"nouter={out.nouter} inner={list(out.inner_niters)} "
+              f"niters={out.niters} rel_err={rel:.3e} "
+              f"stime_s={out.stime:.4f} launches={launches}", flush=True)
+        if not (out.solved and rel < 1e-7 and out.nouter <= 5):
+            raise RuntimeError("golden_mixed cvxqp1_m check failed")
+        if launches["csr_spmv"] < out.niters:
+            raise RuntimeError("golden_mixed: the CSR products did not go "
+                               "through B5")
+        inner.append(tuple(out.inner_niters))
+    if inner[0] != inner[1]:
+        raise RuntimeError(f"golden_mixed inner counts differ between two "
+                           f"runs: {inner}")
+    return launches
 
 
 def phase_main_mixed(sysm, device):
@@ -390,8 +811,8 @@ def phase_main_mixed(sysm, device):
 
     import cpkrylov_tpu_torch as cpt
     from cpkrylov_tpu_torch.mixed import _lean_inner_options
-    from cpkrylov_tpu_torch.ops import cuda_df_dia, cuda_dia
-    from cpkrylov_tpu_torch.precond import cuda_bidiag
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
 
     popts = cpt.PrecondOptions(residual_update=True, nitref=1,
                                force_itref=True)
@@ -409,13 +830,9 @@ def phase_main_mixed(sysm, device):
             inner_stagwin=MIXED_INNER_STAGWIN)
 
     run()                                   # cold: packing, first launches
-    cuda_dia.LAUNCHES = 0
-    cuda_bidiag.LAUNCHES = 0
-    cuda_df_dia.LAUNCHES = 0
+    reset_launches()
     out = run()
-    launches = {"dia_spmv": cuda_dia.LAUNCHES,
-                "bidiag_scan": cuda_bidiag.LAUNCHES,
-                "df_dia_spmv": cuda_df_dia.LAUNCHES}
+    launches = launch_counts()
 
     # The device loop alone, apart from the per-call packing, with the
     # inner preconditioner solve_mixed runs (lean: factor exact at f32).
@@ -460,6 +877,70 @@ def phase_main_mixed(sysm, device):
     return launches, M32
 
 
+def kernel_entry(name: str, source: str, replaces: str) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"cpkrylov_tpu_torch/csrc/{source}",
+            "replaces": replaces, "max_abs_err": 0.0, "library_ms": None}
+
+
+def run_phases(device, profile_dir=None) -> list:
+    """Phases 3-10 (and the profile when asked); returns the kernels' JSON
+    entries."""
+    import torch
+
+    from cpkrylov_tpu_torch.utils import fixtures
+
+    results = {
+        "dia_spmv": kernel_entry("dia_spmv", "dia_spmv.cu",
+                                 "cpkrylov_tpu/ops/pallas_dia.py:93"),
+        "bidiag_scan": kernel_entry(
+            "bidiag_scan", "bidiag_scan.cu",
+            "cpkrylov_tpu/precond/pallas_bidiag.py:100"),
+        "df_dia_spmv": kernel_entry("df_dia_spmv", "df_dia_spmv.cu",
+                                    "cpkrylov_tpu/ops/pallas_dia.py:152"),
+        "band_tri": kernel_entry("band_tri", "band_tri.cu",
+                                 "cpkrylov_tpu/precond/pallas_tri.py:173"),
+        "csr_spmv": kernel_entry("csr_spmv", "csr_spmv.cu",
+                                 "cpkrylov_tpu/ops/pallas_spmv.py:25"),
+        "affine_scan": kernel_entry("affine_scan", "band_tri.cu",
+                                    "cpkrylov_tpu/precond/pallas_tri.py:36"),
+    }
+    t0 = time.perf_counter()
+    sysm = fixtures.banded_saddle_system(1_000_000, 250_000, bandwidth=3)
+    print(f"fixture banded 1000000x250000 seconds="
+          f"{time.perf_counter() - t0:.2f}", flush=True)
+    phase_kernels(sysm, device, results)
+    mm = phase_mm_setup(device)
+    phase_mm_kernels(mm, device, results)
+    torch.cuda.empty_cache()
+    # the golden solve first among the solves: it also brings up the
+    # libraries (cuBLAS for the dot products) that a process's first solve
+    # initializes
+    phase_golden(device)
+    by_path = {"golden_mixed": phase_golden_mixed(device)}
+    by_path["main_path"], M = phase_main_path(sysm, device)
+    by_path["main_mixed"], M32 = phase_main_mixed(sysm, device)
+    for name in ("aug2d_l", "cvxqp3_l"):
+        msys, _, mM, setup = mm[name]
+        by_path[name] = phase_mm_solve(name, msys, mM, setup, device)
+    if profile_dir:
+        phase_profile(sysm, device, M, M32, mm, profile_dir)
+
+    kernels = []
+    for name, res in results.items():
+        entry = dict(res)
+        counts = {p: c[name] for p, c in by_path.items()}
+        entry["launches"] = sum(counts.values())
+        entry["launches_by_path"] = counts
+        if entry["launches"] == 0:
+            raise RuntimeError(f"{name} was launched no time on the paths")
+        kernels.append({k: entry[k] for k in (
+            "name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")})
+    return kernels
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -483,7 +964,6 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
 
     from cpkrylov_tpu_torch import _build
-    from cpkrylov_tpu_torch.utils import fixtures
 
     card = nvidia_smi_card()
     print(f"device torch={torch.__version__} cuda={torch.version.cuda} "
@@ -492,45 +972,7 @@ def main(argv=None) -> int:
     print(f"build seconds={_build.build_kernels():.2f} "
           f"dir={os.path.relpath(_build.BUILD_DIR, ROOT)}", flush=True)
 
-    results = {
-        "dia_spmv": {"name": "dia_spmv", "route": "cuda",
-                     "source": "cpkrylov_tpu_torch/csrc/dia_spmv.cu",
-                     "replaces": "cpkrylov_tpu/ops/pallas_dia.py:93",
-                     "max_abs_err": 0.0},
-        "bidiag_scan": {"name": "bidiag_scan", "route": "cuda",
-                        "source": "cpkrylov_tpu_torch/csrc/bidiag_scan.cu",
-                        "replaces":
-                            "cpkrylov_tpu/precond/pallas_bidiag.py:100",
-                        "max_abs_err": 0.0},
-        "df_dia_spmv": {"name": "df_dia_spmv", "route": "cuda",
-                        "source": "cpkrylov_tpu_torch/csrc/df_dia_spmv.cu",
-                        "replaces": "cpkrylov_tpu/ops/pallas_dia.py:152",
-                        "max_abs_err": 0.0},
-    }
-    t0 = time.perf_counter()
-    sysm = fixtures.banded_saddle_system(1_000_000, 250_000, bandwidth=3)
-    print(f"fixture banded 1000000x250000 seconds="
-          f"{time.perf_counter() - t0:.2f}", flush=True)
-    phase_kernels(sysm, device, results)
-    # the golden solve first: it also brings up the libraries (cuBLAS for
-    # the dot products) that the first solve of a process initializes
-    phase_golden(device)
-    phase_golden_mixed(device)
-    by_path = {}
-    by_path["main_path"], M = phase_main_path(sysm, device)
-    by_path["main_mixed"], M32 = phase_main_mixed(sysm, device)
-    if args.profile:
-        phase_profile(sysm, device, M, M32, args.profile)
-
-    kernels = []
-    for name in ("dia_spmv", "bidiag_scan", "df_dia_spmv"):
-        entry = dict(results[name])
-        counts = {p: c[name] for p, c in by_path.items() if name in c}
-        entry["launches"] = sum(counts.values())
-        entry["launches_by_path"] = counts
-        kernels.append({k: entry[k] for k in (
-            "name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "plain_ms")})
+    kernels = run_phases(device, args.profile)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_card())
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,12 @@ systems
 
 on PyTorch tensors, with hand-written CUDA kernels for Hopper (sm_90a) where
 the JAX package had Pallas TPU kernels: the DIA SpMV (``ops/cuda_dia.py``),
-the bidiagonal triangular solve (``precond/cuda_bidiag.py``) and the df64
-DIA SpMV of the mixed refinement's true residual (``ops/cuda_df_dia.py``).  The JAX
-package ``cpkrylov_tpu`` is the reference this port is tested against; this
+the bidiagonal triangular solve (``precond/cuda_bidiag.py``), the df64 DIA
+SpMV of the mixed refinement's true residual (``ops/cuda_df_dia.py``), the
+banded triangular solve with its affine scan (``precond/cuda_tri.py``) and
+the CSR SpMV (``ops/cuda_spmv.py``).  Every entry point runs on the CUDA
+card unless the caller passes ``device="cpu"``.  The JAX package
+``cpkrylov_tpu`` is the reference this port is tested against; this
 package never imports JAX.
 """
 

@@ -5,9 +5,10 @@ sources is newer than it, into ``build/cpkrylov_tpu_torch/`` beside the
 package (a git-ignored directory):
 
 * ``libcpkt_kernels.so``: the hand-written CUDA kernels (``csrc/*.cu``),
-  compiled by ``nvcc`` for Hopper (``sm_90a``).  Nothing includes PyTorch's
-  headers, so the build takes seconds; the kernels are called through
-  ``ctypes`` with raw device pointers and the current stream.
+  compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc -c`` per source,
+  all started together, then one link.  Nothing includes PyTorch's headers,
+  so the build takes seconds; the kernels are called through ``ctypes`` with
+  raw device pointers and the current stream.
 * ``libcpkt_native.so``: the host LDL^T (``native/*.cpp``), compiled by
   ``g++``.
 
@@ -34,7 +35,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 NATIVE_DIR = os.path.join(PKG_DIR, "native")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _LOCK = threading.Lock()
@@ -43,6 +44,7 @@ _LIBS: dict = {}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_F64 = ctypes.c_double
 
 # C signatures of the kernel library: (name, argtypes).  Every function
 # returns an int (a cudaError_t).
@@ -59,6 +61,21 @@ _KERNEL_SIGNATURES = {
     # stream
     "cpkt_df_dia_spmv_f32": (_P, _P, _P, _I32, _I64, _I64, _P, _P, _P, _P,
                              _P),
+    # B4's phases: inv, b, c (nb*p), n, p, nb, stream; then
+    # w, c, s (nb*r from the scan), x, n, p, r, nb, stream
+    "cpkt_band_c_f32": (_P, _P, _P, _I64, _I32, _I64, _P),
+    "cpkt_band_c_f64": (_P, _P, _P, _I64, _I32, _I64, _P),
+    "cpkt_band_x_f32": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _P),
+    "cpkt_band_x_f64": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _P),
+    # m and its (row, col, step) strides, alpha, c and its (row, step)
+    # strides, s and its (row, step) strides, r, nb, stream
+    "cpkt_affine_scan_f32": (_P, _I64, _I64, _I64, _F64, _P, _I64, _I64, _P,
+                             _I64, _I64, _I32, _I64, _P),
+    "cpkt_affine_scan_f64": (_P, _I64, _I64, _I64, _F64, _P, _I64, _I64, _P,
+                             _I64, _I64, _I32, _I64, _P),
+    # indptr (int64), indices (int32), data, nrows, x, y, stream
+    "cpkt_csr_spmv_f32": (_P, _P, _P, _I64, _P, _P, _P),
+    "cpkt_csr_spmv_f64": (_P, _P, _P, _I64, _P, _P, _P),
 }
 
 
@@ -81,8 +98,9 @@ def _stale(lib: str, deps: list) -> bool:
     return any(os.path.getmtime(s) > t for s in deps)
 
 
-def _build(name: str, compiler: list, sources: list, deps: list) -> str:
-    """Compile ``sources`` into BUILD_DIR/name unless it is up to date.
+def _install(name: str, deps: list, make) -> str:
+    """Build BUILD_DIR/name with ``make(tmp_path, tmp_dir)`` unless it is up
+    to date.
 
     The library is written under a temporary name and renamed into place,
     so concurrent processes (test workers) never load a half-written file.
@@ -91,20 +109,47 @@ def _build(name: str, compiler: list, sources: list, deps: list) -> str:
     lib = os.path.join(BUILD_DIR, name)
     if not _stale(lib, deps):
         return lib
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=name + ".", suffix=".tmp")
-    os.close(fd)
-    try:
-        proc = subprocess.run([*compiler, "-o", tmp, *sources],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise BuildError(
-                f"building {name} failed ({' '.join(compiler[:1])}):\n"
-                f"{proc.stdout}\n{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR,
+                                     prefix=name + ".") as tmp_dir:
+        tmp = os.path.join(tmp_dir, name)
+        make(tmp, tmp_dir)
         os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     return lib
+
+
+def _run(cmd: list, what: str) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise BuildError(f"building {what} failed ({cmd[0]}):\n"
+                         f"{proc.stdout}\n{proc.stderr}")
+
+
+def _build(name: str, compiler: list, sources: list, deps: list) -> str:
+    """Compile ``sources`` into BUILD_DIR/name with one compiler call unless
+    it is up to date."""
+    return _install(name, deps, lambda out, _: _run(
+        [*compiler, "-o", out, *sources], name))
+
+
+def _compile_cuda(out: str, tmp_dir: str, sources: list) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
+    nvcc = nvcc_path()
+    procs = []
+    for src in sources:
+        obj = os.path.join(tmp_dir, os.path.basename(src) + ".o")
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, _, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)}:\n{stdout}\n{stderr}")
+    if failed:
+        raise BuildError("building the CUDA kernels failed (nvcc):\n"
+                         + "\n".join(failed))
+    _run([nvcc, "-shared", "-o", out, *(obj for _, obj, _ in procs)],
+         "the CUDA kernel library")
 
 
 def nvcc_path() -> str:
@@ -130,9 +175,8 @@ def kernel_library() -> ctypes.CDLL:
             return lib
         sources = _sources(CSRC_DIR, ("*.cu",))
         deps = _sources(CSRC_DIR, ("*.cu", "*.cuh"))
-        path = _build("libcpkt_kernels.so",
-                      [nvcc_path(), *NVCC_FLAGS, f"-I{CSRC_DIR}"],
-                      sources, deps)
+        path = _install("libcpkt_kernels.so", deps,
+                        lambda out, tmp: _compile_cuda(out, tmp, sources))
         lib = ctypes.CDLL(path)
         for fn, argtypes in _KERNEL_SIGNATURES.items():
             f = getattr(lib, fn)

@@ -7,8 +7,9 @@ Port of ``cpkrylov_tpu/driver.py`` for CPMINRES in the solve's own dtype:
   * run the kernel (l.163), un-shift (l.166-173), attach ptime/stime.
 
 Explicit host blocks are moved to ``device`` once per call: A and B as DIA
-when their natural-order diagonals pass the fill gate (``ops/dia.py``),
-else CSR; C = delta*I as ``Diagonal``.  ``refine=`` routes the solve
+when their natural-order diagonals pass the fill gate (``ops/dia.py``,
+kernel B1), else CSR (kernel B5, with B's transpose for ``B'y``); C =
+delta*I as ``Diagonal``.  ``refine=`` routes the solve
 through the mixed-precision outer refinement (``mixed.solve_mixed``).
 """
 from __future__ import annotations
@@ -87,14 +88,15 @@ def solve(method, b, A, B, C, G, *,
           opts: SolverOptions | None = None,
           precond_opts: PrecondOptions | None = None,
           backend: str = "auto", ordering="auto", panel: int = 256,
-          dtype=None, device="cpu", M: CPPrecond | None = None,
+          dtype=None, device=None, M: CPPrecond | None = None,
           refine: bool | str = "auto") -> SolveOutput:
     """Solve the regularized saddle-point system [A B'; B -C] [x1;x2] = b.
 
     ``method`` is "cpminres" (or the kernel function).  ``A`` may be a
     matrix or an operator; B, C, G must be explicit host matrices since
     they form the preconditioner.  Every vector, operator and factor lives
-    on ``device``; asking for "cuda" without CUDA raises.  ``dtype``
+    on ``device``: the CUDA card by default, "cpu" on request; the card
+    without CUDA raises.  ``dtype``
     defaults to the rhs dtype.  Pass ``M`` to reuse a built preconditioner.
 
     ``refine`` controls the mixed-precision outer refinement: f32 solves

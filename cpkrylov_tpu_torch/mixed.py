@@ -110,10 +110,10 @@ def solve_mixed(method, b, A, B, C, G, *,
                 inner_stagwin: int = 30,
                 max_outer: int = 40,
                 backend: str = "auto", ordering="auto", panel: int = 256,
-                M=None, device="cpu",
+                M=None, device=None,
                 device_resident: bool | str = "auto") -> MixedSolveOutput:
     """Solve [A B'; B -C][x1;x2] = b to f64 accuracy with f32 work on
-    ``device``.
+    ``device`` (default the CUDA card; "cpu" on request).
 
     ``opts.atol``/``opts.rtol`` set the OUTER (true-residual) tolerance:
     converged when ``||b - K x|| <= atol + rtol ||b||``.  Each f32 inner
@@ -314,8 +314,9 @@ class DeviceMixedSolver:
 
 def prepare_mixed_device(method, b, A, B, C, M32, opts, *,
                          inner_stagwin: int = 30, max_outer: int = 40,
-                         device="cpu") -> DeviceMixedSolver | None:
-    """Pack the operands of the device-resident loop on ``device``; None
+                         device=None) -> DeviceMixedSolver | None:
+    """Pack the operands of the device-resident loop on ``device`` (default
+    the CUDA card); None
     when a block cannot take df64 DIA form (non-diagonal C, or a block that
     fails the DIA gate).  The f32 inner solves read A and B through the hi
     parts of their df64 packs, so each block is packed once."""

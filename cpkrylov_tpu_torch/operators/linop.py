@@ -17,7 +17,7 @@ import torch
 from ..ops import spmv
 from ..ops.dia import DIA
 from ..ops.formats import CSR, Diagonal, csr_from_scipy
-from ..utils.device import torch_dtype
+from ..utils.device import resolve_device, torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,12 +65,14 @@ class FunctionOperator:
 LinearOperator = (MatrixOperator, FunctionOperator)
 
 
-def aslinearoperator(obj, shape=None, dtype=None, device="cpu"):
+def aslinearoperator(obj, shape=None, dtype=None, device=None):
     """Coerce matrices / callables / operators to an operator.
 
     A scipy matrix becomes ``Diagonal`` when strictly diagonal (C = delta*I:
-    one elementwise multiply) and ``CSR`` otherwise, on ``device`` in
-    ``dtype`` (default: the matrix's own dtype).
+    one elementwise multiply) and ``CSR`` otherwise (kernel B5), a numpy
+    array a dense tensor, on ``device`` (default the CUDA card; "cpu" on
+    request) in ``dtype`` (default: the matrix's own dtype).  A tensor
+    moves to ``device`` when one is given and otherwise stays where it is.
     """
     import scipy.sparse as sp
 
@@ -87,8 +89,10 @@ def aslinearoperator(obj, shape=None, dtype=None, device="cpu"):
     if isinstance(obj, torch.Tensor):
         if obj.dim() != 2:
             raise ValueError(f"expected 2-D operand, got {tuple(obj.shape)}")
-        return MatrixOperator(obj.to(device=device,
-                                     dtype=dtype or obj.dtype))
+        return MatrixOperator(obj.to(
+            device=obj.device if device is None else resolve_device(device),
+            dtype=dtype or obj.dtype))
+    device = resolve_device(device)
     tdtype = torch_dtype(dtype if dtype is not None else obj.dtype)
     if sp.issparse(obj):
         if obj.shape[0] == obj.shape[1] and obj.nnz <= obj.shape[0]:

@@ -29,6 +29,7 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import resolve_device
 from .dia import DIA
 
 _SPLITTER = 4097.0   # 2^12 + 1 for binary32 (Dekker split)
@@ -146,8 +147,10 @@ class DFDia:
                    offsets_t=self.offsets_t, shape=self.shape)
 
 
-def df_dia(hi, lo, offsets, shape, device="cpu") -> DFDia:
-    """A ``DFDia`` on ``device`` from (ndiag, nrows) hi/lo arrays."""
+def df_dia(hi, lo, offsets, shape, device=None) -> DFDia:
+    """A ``DFDia`` on ``device`` (default the CUDA card) from (ndiag,
+    nrows) hi/lo arrays."""
+    device = resolve_device(device)
     offsets = tuple(int(o) for o in offsets)
 
     def dev(a):
@@ -160,9 +163,10 @@ def df_dia(hi, lo, offsets, shape, device="cpu") -> DFDia:
                  shape=(int(shape[0]), int(shape[1])))
 
 
-def pack_df_dia(mat, device="cpu", max_bytes_ratio: float = 3.0
+def pack_df_dia(mat, device=None, max_bytes_ratio: float = 3.0
                 ) -> DFDia | None:
-    """Pack a scipy matrix into df64 DIA form; None when the padded
+    """Pack a scipy matrix into df64 DIA form on ``device`` (default the
+    CUDA card); None when the padded
     diagonals would exceed ``max_bytes_ratio`` times the CSR bytes (the JAX
     package's gate, df64.py:148, so the device loop engages on the same
     inputs)."""
@@ -240,10 +244,12 @@ class DFSaddle:
         return (torch.cat([y1[0], y2[0]]), torch.cat([y1[1], y2[1]]))
 
 
-def pack_df_saddle(A, B, C, device="cpu") -> DFSaddle | None:
-    """Pack explicit host blocks into a df64 saddle operator on ``device``;
-    None when C is not diagonal or a block fails the DIA gate (the caller
-    then keeps the host-resident refinement loop)."""
+def pack_df_saddle(A, B, C, device=None) -> DFSaddle | None:
+    """Pack explicit host blocks into a df64 saddle operator on ``device``
+    (default the CUDA card); None when C is not diagonal or a block fails
+    the DIA gate (the caller then keeps the host-resident refinement
+    loop)."""
+    device = resolve_device(device)
     C = sp.csr_matrix(C)
     offd = C - sp.diags(C.diagonal())
     if offd.nnz:

@@ -1,8 +1,9 @@
 """Sparse matrix-vector products and their dispatch.
 
-Port of ``cpkrylov_tpu/ops/spmv.py`` for the formats the port has: DIA (the
-hand-written CUDA kernel on a CUDA tensor, its plain version on a CPU tensor;
-see ``cuda_dia.py``), CSR, Diagonal and dense tensors.  They replace the
+Port of ``cpkrylov_tpu/ops/spmv.py`` for the formats the port has: DIA and
+CSR (the hand-written CUDA kernels B1 and B5 on a CUDA tensor, their plain
+versions on a CPU tensor; see ``cuda_dia.py`` and ``cuda_spmv.py``),
+Diagonal and dense tensors.  They replace the
 implicit native SpMV of the MATLAB reference (every ``A*v`` / ``C*q`` /
 ``B'*y``, cpminres.m:187-188).
 """
@@ -11,22 +12,9 @@ from __future__ import annotations
 import torch
 
 from .cuda_dia import dia_spmv
+from .cuda_spmv import csr_rmatvec, csr_spmv
 from .dia import DIA, dia_rmatvec
 from .formats import CSR, Diagonal
-
-
-def csr_matvec(mat: CSR, x: torch.Tensor) -> torch.Tensor:
-    """y = mat @ x: gather, multiply, sum by row."""
-    vals = mat.data * x[mat.indices]
-    y = torch.zeros(mat.shape[0], dtype=x.dtype, device=x.device)
-    return y.index_add_(0, mat.row_ids, vals)
-
-
-def csr_rmatvec(mat: CSR, y: torch.Tensor) -> torch.Tensor:
-    """x = mat.T @ y: multiply, scatter-add by column."""
-    vals = mat.data * y[mat.row_ids]
-    x = torch.zeros(mat.shape[1], dtype=y.dtype, device=y.device)
-    return x.index_add_(0, mat.indices, vals)
 
 
 def diag_matvec(mat: Diagonal, x: torch.Tensor) -> torch.Tensor:
@@ -37,7 +25,7 @@ def matvec(mat, x: torch.Tensor) -> torch.Tensor:
     if isinstance(mat, DIA):
         return dia_spmv(mat, x)
     if isinstance(mat, CSR):
-        return csr_matvec(mat, x)
+        return csr_spmv(mat, x)
     if isinstance(mat, Diagonal):
         return diag_matvec(mat, x)
     if isinstance(mat, torch.Tensor):

@@ -12,11 +12,18 @@ in f32 and f64 alike:
 
 * ordering: the interleave riffle when K_P's bandwidth under it is <= 128,
   else RCM;
-* factor solves: the bidiagonal scan (``cuda_bidiag.py``) for a factor of
-  reach <= 1, with D^-1 folded into the upper solve when every pivot is 1x1;
-  blocked substitution (``trisolve.py``) otherwise;
+* factor solves (the JAX rule of cp.py:256-358, by structure only): the
+  bidiagonal scan (``cuda_bidiag.py``, kernel B2) for a factor of reach
+  <= 1, with D^-1 folded into the upper solve when every pivot is 1x1;
+  otherwise the reduced-state scan form (``trisolve.ReducedScanTriFactor``,
+  kernels B4 and B6 in ``cuda_tri.py``) at the first panel p of (p0, 128,
+  256, 512, 1024), p0 the reach rounded up to a multiple of 8 (at least 8),
+  with reach <= p, n >= max(16 p, 2048) and the dense panel inverses within
+  2 GiB; else blocked substitution (``trisolve.BlockTriFactor``).  An upper
+  factor other than the bidiagonal scan solves its index reversal between
+  two flips;
 * K_P: DIA when the natural-order pack passes the fill gate (``ops/dia.py``),
-  else CSR;
+  else CSR (kernel B5, ``ops/cuda_spmv.py``);
 * at f32, the df64-applied factor (``df_factor.py``) when the build probe
   finds the plain f32 apply unusable (or ``apply_df64=True``).
 
@@ -41,7 +48,11 @@ from . import ldl_host
 from .cuda_bidiag import build_bidiag_tri, build_bidiag_tri_upper
 from .df_factor import build_df_factor_apply
 from .permute import interleave_candidates, plan_permute
-from .trisolve import build_block_tri, build_block_tri_upper, tri_solve
+from .trisolve import build_block_tri, build_reduced_scan_tri, tri_solve
+
+# Largest device footprint of one triangle's dense panel inverses in the
+# reduced-scan form (cp.py:256 of the JAX package).
+MAX_SCAN_BYTES = 2 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,23 +201,41 @@ def _reach(T, upper: bool) -> int:
 
 
 def _build_tri(T, panel: int, dtype, device):
-    """Lower factor: the bidiagonal scan for reach <= 1, else blocked
-    substitution."""
-    if _reach(T, upper=False) <= 1:
+    """Lower factor: the bidiagonal scan for reach <= 1, else the
+    reduced-state scan form at the first panel that passes the size and
+    memory gates, else blocked substitution at ``panel``."""
+    reach = _reach(T, upper=False)
+    if reach <= 1:
         tf = build_bidiag_tri(T, dtype=dtype, device=device)
         if tf is not None:
             return tf
+    n = T.shape[0]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    p0 = max(8, -(-max(reach, 1) // 8) * 8)
+    for p in (p0, 128, 256, 512, 1024):
+        # the JAX package's gates, so that both pick the same form: small
+        # systems stay on blocked substitution
+        if reach <= p and n >= max(16 * p, 2048):
+            if -(-n // p) * p * p * itemsize > MAX_SCAN_BYTES:
+                break
+            tf = build_reduced_scan_tri(T, dtype=dtype, device=device,
+                                        panel=p)
+            if tf is not None:
+                return tf
     return build_block_tri(T, dtype=dtype, device=device, panel=panel)
 
 
 def _build_tri_upper(U, panel: int, dtype, device):
     """Upper factor: the right-to-left bidiagonal scan for reach <= 1 (no
-    flips), else blocked substitution of the reversal."""
+    flips), else the lower rule on the index reversal J U J (the caller
+    flips the vector around the solve)."""
     if _reach(U, upper=True) <= 1:
         tf = build_bidiag_tri_upper(U, dtype=dtype, device=device)
         if tf is not None:
             return tf
-    return build_block_tri_upper(U, dtype=dtype, device=device, panel=panel)
+    U = sp.csr_matrix(U)
+    rev = np.arange(U.shape[0] - 1, -1, -1)
+    return _build_tri(U[rev][:, rev].tocsr(), panel, dtype, device)
 
 
 def _block_dinv(d: np.ndarray, e: np.ndarray | None):
@@ -243,15 +272,17 @@ def build_factor_apply(fac, N: int, panel: int, dtype, device,
         U = (fac.L + sp.identity(N)).T.tocsr()
         tf2 = None
         folded = False
-        if sub is None and fold_dinv:
+        if sub is None and fold_dinv and _reach(U, upper=True) <= 1:
             # U w = D^-1 v is (D U) w = v, and D U keeps the bidiagonal
             # structure: one fewer vector pass per solve on the scan path.
+            # (The fold only pays on that flip-free path, so a wider factor
+            # is not packed twice.)
             DU = (sp.diags(fac.d) @ U).tocsr()
             tf2 = _build_tri_upper(DU, panel, dtype, device)
             if getattr(tf2, "reverse", False):
                 folded = True
             else:
-                tf2 = None            # fold only pays on the flip-free path
+                tf2 = None
         if tf2 is None:
             tf2 = _build_tri_upper(U, panel, dtype, device)
         p = plan_permute(fac.perm, device, base=base_order)
@@ -268,10 +299,12 @@ def build_factor_apply(fac, N: int, panel: int, dtype, device,
 
 def pack_device_format(mat, dtype, device):
     """K_P on the device: natural-order DIA when it passes the fill gate,
-    else CSR."""
+    else CSR for kernel B5 (K_P is symmetric and only multiplied from the
+    left, so without the transpose)."""
     packed = pack_sym_dia(mat, dtype=dtype, device=device)
     if packed is None:
-        packed = csr_from_scipy(mat, dtype=dtype, device=device)
+        packed = csr_from_scipy(mat, dtype=dtype, device=device,
+                                transpose=False)
     return packed
 
 
@@ -371,20 +404,21 @@ def build_precond(fac, ksp, n: int, m: int, *, options: PrecondOptions,
                      probe_rel=float(probe_rel))
 
 
-def make_preconditioner(G, B, C, *, options: PrecondOptions | None = None,
-                        backend: str = "auto", ordering="auto",
-                        panel: int = 256, reg_value: float = 1e-10,
-                        factor_nitref: int | None = None,
-                        dtype=torch.float64, device="cpu") -> CPPrecond:
-    """Build the constraint preconditioner (the driver's
-    ``M = opLDL2(G, B, -C)``, reg_cpkrylov.m:131) on ``device``.
+class HostFactor(NamedTuple):
+    """The host half of ``make_preconditioner``: K_P, its factorization and
+    the ordering's structured base (for the permutes)."""
 
-    ``ordering``: "auto" (interleave when K_P stays banded under it, else
-    RCM), "rcm", "natural", or an explicit permutation array.
-    """
-    options = options or PrecondOptions()
-    dtype = torch_dtype(dtype)
-    device = resolve_device(device)
+    fac: object           # ldl_host.HostLDL or HostLU
+    ksp: sp.csc_matrix    # K_P
+    n: int
+    m: int
+    base_order: object    # the interleave candidate, or None
+
+
+def factorize_kp(G, B, C, *, backend: str = "auto", ordering="auto",
+                 reg_value: float = 1e-10) -> HostFactor:
+    """Assemble K_P = [G B'; B -C], choose its ordering and factorize it on
+    the host (``ordering`` as in ``make_preconditioner``)."""
     n = G.shape[0]
     m = C.shape[0]
     ksp = assemble_kp(G, B, C)
@@ -394,6 +428,28 @@ def make_preconditioner(G, B, C, *, options: PrecondOptions | None = None,
     signs = np.concatenate([np.ones(n), -np.ones(m)])
     fac = ldl_host.factorize(ksp, method=backend, ordering=ordering,
                              pivot_signs=signs, reg_value=reg_value)
-    return build_precond(fac, ksp, n, m, options=options, panel=panel,
-                         dtype=dtype, device=device, base_order=base_order,
+    return HostFactor(fac=fac, ksp=ksp, n=int(n), m=int(m),
+                      base_order=base_order)
+
+
+def make_preconditioner(G, B, C, *, options: PrecondOptions | None = None,
+                        backend: str = "auto", ordering="auto",
+                        panel: int = 256, reg_value: float = 1e-10,
+                        factor_nitref: int | None = None,
+                        dtype=torch.float64, device=None) -> CPPrecond:
+    """Build the constraint preconditioner (the driver's
+    ``M = opLDL2(G, B, -C)``, reg_cpkrylov.m:131) on ``device`` (default
+    the CUDA card; pass "cpu" for the CPU).
+
+    ``ordering``: "auto" (interleave when K_P stays banded under it, else
+    RCM), "rcm", "natural", or an explicit permutation array.
+    """
+    options = options or PrecondOptions()
+    dtype = torch_dtype(dtype)
+    device = resolve_device(device)
+    hf = factorize_kp(G, B, C, backend=backend, ordering=ordering,
+                      reg_value=reg_value)
+    return build_precond(hf.fac, hf.ksp, hf.n, hf.m, options=options,
+                         panel=panel, dtype=dtype, device=device,
+                         base_order=hf.base_order,
                          factor_nitref=factor_nitref)

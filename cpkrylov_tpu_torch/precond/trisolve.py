@@ -1,16 +1,31 @@
-"""Sparse triangular solves by blocked forward substitution (plain PyTorch).
+"""Sparse triangular solves: blocked forward substitution and the banded
+reduced-state scan form.
 
-Port of the ``BlockTriFactor`` path of ``cpkrylov_tpu/precond/trisolve.py``.
-It serves factors whose subdiagonal reach exceeds 1 (RCM-ordered general KKT
-factors such as ``cvxqp1_m``); reach-1 factors take the bidiagonal scan
-kernel (``cuda_bidiag.py``).  The factor is blocked into ``panel``-row panels
-whose dense inverses are computed once on the host; the solve is the
-sequential loop
+Port of the ``BlockTriFactor`` and ``ReducedScanTriFactor`` paths of
+``cpkrylov_tpu/precond/trisolve.py``.  Reach-1 factors take the bidiagonal
+scan kernel (``cuda_bidiag.py``); ``precond/cp.py`` chooses between the two
+forms here by the factor's structure.
+
+*Blocked substitution* (``BlockTriFactor``) blocks the factor into
+``panel``-row panels whose dense inverses are computed once on the host; the
+solve is the sequential loop
 
     x[blk] = inv_diag[blk] @ (b[blk] - L_off[blk, :] @ x)
 
-over ``n / panel`` panels.  An upper-triangular solve is the same loop on
-the index-reversed matrix (J U J is lower triangular for the reversal J).
+over ``n / panel`` panels.
+
+*Reduced-state scan* (``ReducedScanTriFactor``) serves a factor whose
+subdiagonal reach r is at most the panel p.  Panel i only reads the last r
+entries s_{i-1} of panel i-1, so with c_i = inv_i b_i and W_i = inv_i S_i
+
+    s_i = -W_i[p-r:] s_{i-1} + c_i[p-r:],      x_i = c_i - W_i s_{i-1}.
+
+On a CUDA tensor it runs in the hand-written kernel B4 (``cuda_tri.py``),
+whose scan is kernel B6; ``reduced_scan_tri_solve_plain`` is the plain
+PyTorch version of the same math.
+
+An upper-triangular solve is either form on the index-reversed matrix
+(J U J is lower triangular for the reversal J).
 """
 from __future__ import annotations
 
@@ -61,17 +76,22 @@ def _invert_panels_f(diag_f: np.ndarray) -> np.ndarray:
     return diag_f
 
 
-def build_block_tri(T, dtype: torch.dtype, device,
-                    panel: int = 256) -> BlockTriFactor:
-    """Prepare a scipy lower-triangular matrix (explicit nonzero diagonal;
-    pass ``L + I`` for unit-diagonal factors).  Vectorized numpy packing."""
+def _coo_canonical(T):
+    """Canonical (row, col, data) triplets of a scipy matrix, int64
+    indices."""
     import scipy.sparse as sp
 
     T = sp.csr_matrix(T)
     T.sum_duplicates()
     coo = T.tocoo()
-    er, ec, ev = (coo.row.astype(np.int64), coo.col.astype(np.int64),
-                  coo.data)
+    return T, coo.row.astype(np.int64), coo.col.astype(np.int64), coo.data
+
+
+def build_block_tri(T, dtype: torch.dtype, device,
+                    panel: int = 256) -> BlockTriFactor:
+    """Prepare a scipy lower-triangular matrix (explicit nonzero diagonal;
+    pass ``L + I`` for unit-diagonal factors).  Vectorized numpy packing."""
+    T, er, ec, ev = _coo_canonical(T)
     n = T.shape[0]
     nblocks = max(1, -(-n // panel))
     n_pad = nblocks * panel
@@ -112,18 +132,6 @@ def build_block_tri(T, dtype: torch.dtype, device,
         n=int(n), panel=int(panel))
 
 
-def build_block_tri_upper(U, dtype: torch.dtype, device,
-                          panel: int = 256) -> BlockTriFactor:
-    """Prepare an upper-triangular matrix by building its reversal; the
-    caller flips the vector around the solve (``FactorApply.solve``)."""
-    import scipy.sparse as sp
-
-    U = sp.csr_matrix(U)
-    rev = np.arange(U.shape[0] - 1, -1, -1)
-    return build_block_tri(U[rev][:, rev].tocsr(), dtype=dtype,
-                           device=device, panel=panel)
-
-
 def block_tri_solve(tf: BlockTriFactor, b: torch.Tensor) -> torch.Tensor:
     """Solve T x = b for the prepared lower-triangular factor."""
     panel = tf.panel
@@ -143,10 +151,130 @@ def block_tri_solve(tf: BlockTriFactor, b: torch.Tensor) -> torch.Tensor:
     return x[: tf.n]
 
 
+@dataclasses.dataclass(frozen=True)
+class ReducedScanTriFactor:
+    """Banded lower factor for the reduced-state scan (kernel B4).
+
+    Panel-major and row-major on the device, contiguous:
+    ``inv_diag[i, j, k] = (T_ii^-1)[j, k]`` and ``w_blocks[i, j, k] =
+    (T_ii^-1 S_i)[j, k]``, with S_i the last r columns of T's block (i, i-1)
+    (``w_blocks[0] = 0``).  Every row the kernel reads is contiguous, so a
+    warp streams it with coalesced loads.
+    """
+
+    inv_diag: torch.Tensor   # (nb, p, p)
+    w_blocks: torch.Tensor   # (nb, p, r)
+    n: int
+    panel: int
+    r: int
+
+    @property
+    def nblocks(self) -> int:
+        return int(self.inv_diag.shape[0])
+
+
+def pack_reduced_scan_np(T, panel: int = 128, r: int | None = None,
+                         dtype=None):
+    """Host packing of the reduced-state scan form (trisolve.py:346-389 of
+    the JAX package, the same numbers): numpy ``(inv (nb, p, p), w (nb, p,
+    r), n, panel, r)``, or None when the reach exceeds ``panel``.  Linear in
+    nnz plus O(nb p^3) batched LAPACK/BLAS work."""
+    T, er, ec, ev = _coo_canonical(T)
+    n = T.shape[0]
+    dtype = dtype or T.dtype
+    reach = int((er - ec).max()) if ev.size else 0
+    if reach > panel:
+        return None
+    if r is None:
+        r = max(1, reach)
+    r = min(r, panel)
+
+    nblocks = max(1, -(-n // panel))
+    blk = er // panel
+    r_loc = er - blk * panel
+    on_diag = (ec // panel) == blk
+
+    diag_f = np.zeros((panel, panel, nblocks), dtype=np.float64, order="F")
+    idx = np.arange(panel)
+    diag_f[idx, idx, :] = 1.0
+    d = on_diag
+    diag_f[r_loc[d], ec[d] - blk[d] * panel, blk[d]] = ev[d]
+    s = ~on_diag
+    sub_c = np.zeros((nblocks, reach if reach else 1, r), dtype=np.float64)
+    if s.any():
+        sub_c[blk[s], r_loc[s], ec[s] - (blk[s] - 1) * panel - (panel - r)] \
+            = ev[s]
+
+    inv64 = _invert_panels_f(diag_f).transpose(2, 0, 1)   # (nb, p, p) view
+    w = np.zeros((nblocks, panel, r), dtype=dtype)
+    if nblocks > 1 and reach:
+        prod = np.matmul(np.ascontiguousarray(inv64[1:, :, :reach]),
+                         sub_c[1:])
+        w[1:] = prod.astype(dtype)
+    # row-major panels (the device layout) straight from the F-ordered stack
+    return inv64.astype(dtype, order="C"), w, int(n), int(panel), int(r)
+
+
+def reduced_scan_tri(inv, w, n: int, panel: int, r: int, dtype: torch.dtype,
+                     device) -> ReducedScanTriFactor:
+    """The factor on ``device`` from packed (nb, p, p) / (nb, p, r) arrays."""
+    inv = torch.as_tensor(np.require(inv, requirements=["C", "W"]))
+    w = torch.as_tensor(np.require(w, requirements=["C", "W"]))
+    nb = int(inv.shape[0])
+    if tuple(inv.shape) != (nb, panel, panel) or tuple(w.shape) != (
+            nb, panel, r) or not 1 <= r <= panel:
+        raise ValueError(f"inconsistent reduced-scan operands: inv "
+                         f"{tuple(inv.shape)}, w {tuple(w.shape)}, panel "
+                         f"{panel}, r {r}")
+    if nb * panel < n:
+        raise ValueError(f"{nb} panels of {panel} rows do not cover n={n}")
+    return ReducedScanTriFactor(
+        inv_diag=inv.to(device=device, dtype=dtype).contiguous(),
+        w_blocks=w.to(device=device, dtype=dtype).contiguous(),
+        n=int(n), panel=int(panel), r=int(r))
+
+
+def build_reduced_scan_tri(T, dtype: torch.dtype, device, panel: int = 128,
+                           r: int | None = None
+                           ) -> ReducedScanTriFactor | None:
+    """Prepare a banded scipy lower-triangular matrix for the reduced-state
+    scan; None when its reach exceeds ``panel``."""
+    npd = np.float32 if dtype == torch.float32 else np.float64
+    packed = pack_reduced_scan_np(T, panel=panel, r=r, dtype=npd)
+    if packed is None:
+        return None
+    inv, w, n, p, r = packed
+    return reduced_scan_tri(inv, w, n, p, r, dtype, device)
+
+
+def reduced_scan_tri_solve_plain(tf: ReducedScanTriFactor,
+                                 b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the reduced-state scan solve
+    (trisolve.py:324-343 of the JAX package): c = inv b, the inclusive
+    scan s_i = -W_i[p-r:] s_{i-1} + c_i[p-r:] (``affine_scan_plain``, the
+    plain version of kernel B6), then x = c - W s_prev."""
+    from .cuda_tri import affine_scan_plain
+
+    p, r, nb = tf.panel, tf.r, tf.nblocks
+    b_pad = torch.zeros(nb * p, dtype=b.dtype, device=b.device)
+    b_pad[: tf.n] = b
+    c = torch.bmm(tf.inv_diag.to(b.dtype), b_pad.view(nb, p, 1)).view(nb, p)
+    w = tf.w_blocks.to(b.dtype)
+    s = affine_scan_plain((-w[:, p - r:, :]).permute(1, 2, 0),
+                          c[:, p - r:].T)                     # (r, nb)
+    s_prev = torch.cat([torch.zeros(r, 1, dtype=b.dtype, device=b.device),
+                        s[:, :-1]], dim=1)
+    x = c - torch.bmm(w, s_prev.T.unsqueeze(-1)).view(nb, p)
+    return x.reshape(-1)[: tf.n]
+
+
 def tri_solve(tf, b: torch.Tensor) -> torch.Tensor:
     """Dispatch on the prepared factor kind."""
     from .cuda_bidiag import BidiagTriFactor, bidiag_tri_solve
+    from .cuda_tri import band_tri_solve
 
     if isinstance(tf, BidiagTriFactor):
         return bidiag_tri_solve(tf, b)
+    if isinstance(tf, ReducedScanTriFactor):
+        return band_tri_solve(tf, b)
     return block_tri_solve(tf, b)

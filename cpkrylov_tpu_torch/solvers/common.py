@@ -86,7 +86,7 @@ def safe_normalize_pair(v, q, beta):
     return torch.where(pos, v / denom, v), torch.where(pos, q / denom, q)
 
 
-def resolve_operators(A, C, device="cpu"):
+def resolve_operators(A, C, device=None):
     return (aslinearoperator(A, device=device),
             aslinearoperator(C, device=device))
 

@@ -1,9 +1,10 @@
 """Carry state across from the JAX package (or any numpy/scipy source).
 
 These take plain numpy/scipy fields, never JAX objects' methods, so the port
-stays free of JAX: a caller that holds the JAX package's ``HostLDL`` or a
-packed DIA passes it (or its numpy arrays) here and gets the port's
-equivalent, with identical numbers.
+stays free of JAX: a caller that holds the JAX package's ``HostLDL``, a
+packed DIA, a reduced-scan triangle or a CSR passes it (or its numpy
+arrays) here and gets the port's equivalent, with identical numbers, on
+``device`` (default the CUDA card; "cpu" on request).
 """
 from __future__ import annotations
 
@@ -13,10 +14,12 @@ import torch
 from ..config import PrecondOptions
 from ..ops.df64 import DFDia, DFSaddle, df_dia
 from ..ops.dia import DIA
+from ..ops.formats import CSR, csr_from_scipy
 from ..precond import ldl_host
 from ..precond.cp import CPPrecond, build_factor_apply, build_precond
 from ..precond.df_factor import DFFactorApply, build_df_factor_apply
 from ..precond.permute import interleave_candidates
+from ..precond.trisolve import ReducedScanTriFactor, reduced_scan_tri
 from ..utils.device import resolve_device, torch_dtype
 
 
@@ -42,7 +45,7 @@ def _interleave_base(perm, n: int, m: int):
 
 def precond_from_host(fac, ksp, n: int, m: int,
                       options: PrecondOptions | None = None,
-                      dtype=torch.float64, device="cpu",
+                      dtype=torch.float64, device=None,
                       panel: int = 256) -> CPPrecond:
     """The port's ``CPPrecond`` for a host LDL^T factorization of
     ``ksp`` = K_P.  The interleave is recognised from ``fac.perm`` so the
@@ -55,7 +58,7 @@ def precond_from_host(fac, ksp, n: int, m: int,
                          base_order=_interleave_base(fac.perm, n, m))
 
 
-def df_factor_from_host(fac, n: int, m: int, device="cpu",
+def df_factor_from_host(fac, n: int, m: int, device=None,
                         panel: int = 256, nref: int = 1) -> DFFactorApply:
     """The port's df64-applied f32 factor (``precond/df_factor.py``) for a
     host LDL^T factorization, built unfolded as ``make_preconditioner``
@@ -68,14 +71,14 @@ def df_factor_from_host(fac, n: int, m: int, device="cpu",
     return build_df_factor_apply(factor, fac, n + m, nref=nref)
 
 
-def df_dia_from(d, device="cpu") -> DFDia:
+def df_dia_from(d, device=None) -> DFDia:
     """The port's ``DFDia`` from any object with numpy-convertible ``hi``
     and ``lo`` (ndiag, nrows) stacks, ``offsets`` and ``shape``."""
     return df_dia(np.asarray(d.hi), np.asarray(d.lo), d.offsets, d.shape,
                   device=resolve_device(device))
 
 
-def df_saddle_from(s, device="cpu") -> DFSaddle:
+def df_saddle_from(s, device=None) -> DFSaddle:
     """The port's ``DFSaddle`` from any object with DFDia-like ``a``,
     ``bt`` and ``b``, a (hi, lo) ``c_diag`` pair and ``n``, ``m``."""
     device = resolve_device(device)
@@ -87,7 +90,7 @@ def df_saddle_from(s, device="cpu") -> DFSaddle:
         n=int(s.n), m=int(s.m))
 
 
-def dia_from_numpy(data, offsets, shape, dtype=torch.float64, device="cpu",
+def dia_from_numpy(data, offsets, shape, dtype=torch.float64, device=None,
                    nnz: int = 0) -> DIA:
     """The port's ``DIA`` from a packed (ndiag, nrows) array and its
     offsets (column minus row, ascending)."""
@@ -105,3 +108,33 @@ def dia_from_numpy(data, offsets, shape, dtype=torch.float64, device="cpu",
                offsets_t=torch.tensor(offsets, dtype=torch.int64,
                                       device=device),
                shape=(int(shape[0]), int(shape[1])), nnz=int(nnz))
+
+
+def reduced_scan_from(f, dtype=torch.float64,
+                      device=None) -> ReducedScanTriFactor:
+    """The port's reduced-scan triangle (kernel B4's operand) from the
+    numpy fields of the JAX package's ``ReducedScanTriFactor``
+    (``inv_diag (nb, p, p)``, ``w_blocks (nb, p, r)``) or of its lane-major
+    ``PallasTriFactor`` (``inv_t (p, p, nb_pad)``, ``w_t (p, r, nb_pad)``,
+    un-padded to ``nb``), with ``n``, ``panel`` and ``r``."""
+    if hasattr(f, "inv_t"):
+        nb = int(f.nb)
+        inv = np.asarray(f.inv_t)[:, :, :nb].transpose(2, 0, 1)
+        w = np.asarray(f.w_t)[:, :, :nb].transpose(2, 0, 1)
+    else:
+        inv, w = np.asarray(f.inv_diag), np.asarray(f.w_blocks)
+    return reduced_scan_tri(inv, w, int(f.n), int(f.panel), int(f.r),
+                            torch_dtype(dtype), resolve_device(device))
+
+
+def csr_from_numpy(data, indices, indptr, shape, dtype=torch.float64,
+                   device=None, transpose: bool = True) -> CSR:
+    """The port's ``CSR`` (kernel B5's operand) from CSR arrays (values,
+    column indices, row pointers) of the given shape."""
+    import scipy.sparse as sp
+
+    mat = sp.csr_matrix((np.asarray(data), np.asarray(indices),
+                         np.asarray(indptr)),
+                        shape=(int(shape[0]), int(shape[1])))
+    return csr_from_scipy(mat, dtype=torch_dtype(dtype),
+                          device=resolve_device(device), transpose=transpose)

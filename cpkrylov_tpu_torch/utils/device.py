@@ -6,12 +6,15 @@ import torch
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device`` (default CPU).  Asking for CUDA
-    where there is none raises: the port never falls back to the CPU."""
-    dev = torch.device("cpu" if device is None else device)
+    """``device`` as a ``torch.device``; None (every entry point's default)
+    is the CUDA card.  Asking for CUDA where there is none raises: the port
+    never falls back to the CPU, which a caller asks for by name ("cpu")."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
+        what = ("the default device (CUDA)" if device is None
+                else f"device {device!r}")
+        raise RuntimeError(f"{what} requested but CUDA is not available; "
+                           "pass device='cpu' to run on the CPU")
     return dev
 
 

@@ -13,10 +13,16 @@ which makes it an upper bound of the unprofiled idle share.
 
 Port of the ``trace`` part of ``cpkrylov_tpu/utils/profiling.py``; its
 work model waits for the benchmark.
+
+:func:`launch_counts` reads the ``LAUNCHES`` counters of the hand-written
+kernels B1-B6 (each wrapper adds one where it launches its kernel, and
+nowhere else), and :func:`reset_launches` sets them to 0, so a run can show
+which kernels carried it.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import tempfile
@@ -26,6 +32,16 @@ import torch
 SOLVE_SPAN = "cpkrylov.solve"   # record_function span around the iteration
 MIXED_SPAN = "cpkrylov.solve_mixed"   # ... around a whole mixed solve
 MIXED_LOOP_SPAN = "cpkrylov.mixed_loop"   # ... around its device loop
+
+# kernel name -> (wrapper module, its counter): B1, B2, B3, B4, B5, B6
+KERNEL_COUNTERS = {
+    "dia_spmv": ("cpkrylov_tpu_torch.ops.cuda_dia", "LAUNCHES"),
+    "bidiag_scan": ("cpkrylov_tpu_torch.precond.cuda_bidiag", "LAUNCHES"),
+    "df_dia_spmv": ("cpkrylov_tpu_torch.ops.cuda_df_dia", "LAUNCHES"),
+    "band_tri": ("cpkrylov_tpu_torch.precond.cuda_tri", "LAUNCHES"),
+    "csr_spmv": ("cpkrylov_tpu_torch.ops.cuda_spmv", "LAUNCHES"),
+    "affine_scan": ("cpkrylov_tpu_torch.precond.cuda_tri", "SCAN_LAUNCHES"),
+}
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -45,6 +61,18 @@ class DeviceProfile:
     @property
     def idle_share(self) -> float:
         return 1.0 - self.busy_ms / self.wall_ms if self.wall_ms > 0 else 0.0
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since its counter was last reset."""
+    return {name: getattr(importlib.import_module(mod), attr)
+            for name, (mod, attr) in KERNEL_COUNTERS.items()}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch counter to 0."""
+    for mod, attr in KERNEL_COUNTERS.values():
+        setattr(importlib.import_module(mod), attr, 0)
 
 
 def union_ms(intervals, lo: float, hi: float) -> float:

@@ -8,10 +8,12 @@
 * banded(8192, 2048): the interleave/bidiagonal/DIA layout of the main path;
   iteration count within +-1 of the JAX package's ``solve(...,
   spmv_format="dia")`` and x within 1e-8 relative (2-norm).
-* the entry point's errors, and that importing the port leaves JAX out.
+* the entry point's errors, and that the port and ``chip_smoke.py`` leave
+  JAX and the JAX package out.
 """
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -76,7 +78,8 @@ def test_banded_matches_jax_dia(dtype):
                  itmax=200)
     out = cpt.solve("cpminres", s.b, s.A, s.B, s.C, s.G,
                     opts=cpt.SolverOptions(**sopts),
-                    precond_opts=cpt.PrecondOptions(**POPTS), dtype=dtype)
+                    precond_opts=cpt.PrecondOptions(**POPTS), dtype=dtype,
+                    device="cpu")
     assert out.solved and out.x.dtype == dtype
     if dtype == torch.float32:
         x64 = spla.spsolve(s.K.tocsc(), s.b)
@@ -101,12 +104,12 @@ def test_operator_a_and_reused_preconditioner():
     s = fixtures.random_sqd_system(300, 100, seed=4)
     popts = cpt.PrecondOptions(**POPTS)
     base = cpt.solve("cpminres", s.b, s.A, s.B, s.C, s.G,
-                     precond_opts=popts)
+                     precond_opts=popts, device="cpu")
     A64 = torch.as_tensor(s.A.toarray())
-    M = cpt.make_preconditioner(s.G, s.B, s.C, options=popts)
+    M = cpt.make_preconditioner(s.G, s.B, s.C, options=popts, device="cpu")
     op = cpt.aslinearoperator(lambda v: A64 @ v, shape=s.A.shape)
     out = cpt.solve("cpminres", s.b, op, s.B, s.C, s.G, M=M,
-                    precond_opts=popts, dtype=torch.float64)
+                    precond_opts=popts, dtype=torch.float64, device="cpu")
     assert out.solved and base.solved
     assert abs(out.niters - base.niters) <= 1
     np.testing.assert_allclose(out.x.numpy(), base.x.numpy(), rtol=1e-8,
@@ -116,13 +119,14 @@ def test_operator_a_and_reused_preconditioner():
 def test_entry_point_errors():
     s = fixtures.random_sqd_system(40, 10, seed=1)
     with pytest.raises(ValueError, match="rhs has length"):
-        cpt.solve("cpminres", s.b[:-1], s.A, s.B, s.C, s.G)
+        cpt.solve("cpminres", s.b[:-1], s.A, s.B, s.C, s.G, device="cpu")
     with pytest.raises(ValueError, match="unknown solver"):
-        cpt.solve("cpfoo", s.b, s.A, s.B, s.C, s.G)
+        cpt.solve("cpfoo", s.b, s.A, s.B, s.C, s.G, device="cpu")
     # refine=True takes the mixed refinement, which needs explicit blocks
     A_op = cpt.aslinearoperator(lambda v: v, shape=s.A.shape)
     with pytest.raises(TypeError, match="explicit matrix"):
-        cpt.solve("cpminres", s.b, A_op, s.B, s.C, s.G, refine=True)
+        cpt.solve("cpminres", s.b, A_op, s.B, s.C, s.G, refine=True,
+                  device="cpu")
 
 
 def test_cuda_request_without_cuda_raises():
@@ -159,6 +163,8 @@ def test_import_leaves_jax_out():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
-    for path in (ROOT / "cpkrylov_tpu_torch").rglob("*.py"):
-        text = path.read_text()
-        assert "import jax" not in text and "from jax" not in text, path
+    banned = re.compile(r"^\s*(import|from)\s+(jax|cpkrylov_tpu)\b(?!_torch)",
+                        re.MULTILINE)
+    for path in [*(ROOT / "cpkrylov_tpu_torch").rglob("*.py"),
+                 ROOT / "chip_smoke.py"]:
+        assert not banned.search(path.read_text()), path

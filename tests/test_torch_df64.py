@@ -139,7 +139,7 @@ def test_df_dia_matvec_against_scipy_and_jax(name):
     mat = _df_case(name, rng)
     x = rng.standard_normal(mat.shape[1])
     xh, xl = df64.df_from_f64(x)
-    d = df64.pack_df_dia(mat)
+    d = df64.pack_df_dia(mat, device="cpu")
     jd = jdf.pack_df_dia(mat)
     assert d.offsets == jd.offsets and d.shape == jd.shape
     np.testing.assert_array_equal(d.hi.numpy(), np.asarray(jd.hi))
@@ -179,14 +179,14 @@ def _gate_cases(rng):
 
 def test_pack_df_dia_gate_matches_jax():
     for name, mat in _gate_cases(np.random.default_rng(4)).items():
-        ours = df64.pack_df_dia(mat)
+        ours = df64.pack_df_dia(mat, device="cpu")
         ref = jdf.pack_df_dia(mat)
         assert (ours is None) == (ref is None), name
         if ours is not None:
             assert ours.offsets == ref.offsets, name
             np.testing.assert_array_equal(ours.hi.numpy(), np.asarray(ref.hi))
     assert df64.pack_df_dia(_gate_cases(np.random.default_rng(4))[
-        "scattered"]) is None
+        "scattered"], device="cpu") is None
 
 
 def test_df_saddle_residual_cancellation():
@@ -195,7 +195,7 @@ def test_df_saddle_residual_cancellation():
     K = sp.bmat([[sysm.A, sysm.B.T], [sysm.B, -sysm.C]]).tocsr()
     x = np.random.default_rng(3).standard_normal(K.shape[0])
     b = K @ x          # the residual of x is exactly 0 in f64
-    Kdf = df64.pack_df_saddle(sysm.A, sysm.B, sysm.C)
+    Kdf = df64.pack_df_saddle(sysm.A, sysm.B, sysm.C, device="cpu")
     assert Kdf is not None
     xh, xl = df64.df_from_f64(x)
     kx = Kdf.matvec((_t(xh), _t(xl)))
@@ -205,14 +205,14 @@ def test_df_saddle_residual_cancellation():
     # the JAX package's packed operator, carried across, gives the same
     # product as the port's own pack
     jK = jdf.pack_df_saddle(sysm.A, sysm.B, sysm.C)
-    kx2 = df_saddle_from(jK).matvec((_t(xh), _t(xl)))
+    kx2 = df_saddle_from(jK, device="cpu").matvec((_t(xh), _t(xl)))
     for got, want in zip(kx2, kx):
         assert torch.equal(got, want)
     jkx = jK.matvec((jnp.asarray(xh), jnp.asarray(xl)))
     assert (np.linalg.norm(df64.df_to_f64(*kx) - jdf.df_to_f64(*jkx))
             <= 1e-13 * np.linalg.norm(b + 1.0))
     assert df64.pack_df_saddle(sysm.A, sysm.B,
-                               sysm.C + sp.eye(500, k=1)) is None
+                               sysm.C + sp.eye(500, k=1), device="cpu") is None
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +233,7 @@ def test_f32_precond_factor_choice_matches_jax(cvxqp1_sys, apply_df64):
         warnings.simplefilter("always")
         M = cpt.make_preconditioner(
             s.G, s.B, s.C, dtype=torch.float32,
-            options=cpt.PrecondOptions(apply_df64=apply_df64))
+            options=cpt.PrecondOptions(apply_df64=apply_df64), device="cpu")
     assert any("coarsely factorable" in str(w.message) for w in caught)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -271,7 +271,7 @@ def test_df_factor_from_jax_host_factor_matches_jax(cvxqp1_sys):
         ksp, method="auto", ordering="rcm",
         pivot_signs=np.concatenate([np.ones(s.n), -np.ones(s.m)]),
         reg_value=1e-10)
-    ours = df_factor_from_host(fac, s.n, s.m)
+    ours = df_factor_from_host(fac, s.n, s.m, device="cpu")
     ref = jbdf(jax_bfa(fac, N, 256, np.float32, scan_ok=False,
                        fold_dinv=False), fac, N, nref=1)
     z = np.random.default_rng(6).standard_normal(N).astype(np.float32)
@@ -305,12 +305,13 @@ def test_f32_cpminres_trajectory_matches_jax(cvxqp1_sys, monkeypatch):
         ref = cpk.solve("cpminres", b32, s.A, s.B, s.C, s.G,
                         opts=cpk.SolverOptions(**sopts), dtype=np.float32)
         own = cpt.solve("cpminres", b32, s.A, s.B, s.C, s.G,
-                        opts=cpt.SolverOptions(**sopts), dtype=torch.float32)
+                        opts=cpt.SolverOptions(**sopts), dtype=torch.float32,
+                        device="cpu")
         monkeypatch.setattr(common, "vdot", _xla_dot)
         monkeypatch.setattr(cpminres, "vdot", _xla_dot)
         same = cpt.solve("cpminres", b32, s.A, s.B, s.C, s.G,
                          opts=cpt.SolverOptions(**sopts),
-                         dtype=torch.float32)
+                         dtype=torch.float32, device="cpu")
     assert same.istatus == int(ref.istatus)
     assert abs(same.niters - int(ref.niters)) <= 3, (same.niters, ref.niters)
     # with its own dot the port stops just as honestly, within the window
@@ -326,7 +327,8 @@ def test_f32_cpminres_trajectory_matches_jax(cvxqp1_sys, monkeypatch):
 def test_df_factor_with_reverse_upper_scan_against_scipy():
     s = fixtures.banded_saddle_system(8192, 2048)
     M = cpt.make_preconditioner(s.G, s.B, s.C, dtype=torch.float32,
-                                options=cpt.PrecondOptions(apply_df64=True))
+                                options=cpt.PrecondOptions(apply_df64=True),
+                                device="cpu")
     f = M.factor
     assert isinstance(f, DFFactorApply)
     assert isinstance(f.tf2, BidiagTriFactor) and f.tf2.reverse
@@ -342,7 +344,8 @@ def test_df_factor_with_reverse_upper_scan_against_scipy():
 def test_df_factor_needs_an_unfolded_factor():
     s = fixtures.banded_saddle_system(2048, 512)
     M = cpt.make_preconditioner(s.G, s.B, s.C, dtype=torch.float32,
-                                options=cpt.PrecondOptions(apply_df64=False))
+                                options=cpt.PrecondOptions(apply_df64=False),
+                                device="cpu")
     assert isinstance(M.factor, FactorApply) and M.factor.dinv_folded
     from cpkrylov_tpu_torch.precond import ldl_host
     from cpkrylov_tpu_torch.precond.cp import choose_ordering
@@ -371,12 +374,14 @@ def test_mixed_sees_inplace_updates(device_resident):
                                          with_oracle=False)
     opts = cpt.SolverOptions(atol=0.0, rtol=1e-10, itmax=300)
     out1 = cpt.solve_mixed("cpminres", sysm.b, sysm.A, sysm.B, sysm.C,
-                           sysm.G, opts=opts, device_resident=device_resident)
+                           sysm.G, opts=opts, device_resident=device_resident,
+                           device="cpu")
     assert out1.solved
     sysm.A.data *= 1.5
     sysm.G = sp.diags(sysm.A.diagonal()).tocsr()
     out2 = cpt.solve_mixed("cpminres", sysm.b, sysm.A, sysm.B, sysm.C,
-                           sysm.G, opts=opts, device_resident=device_resident)
+                           sysm.G, opts=opts, device_resident=device_resident,
+                           device="cpu")
     assert out2.solved
     K2 = sp.bmat([[sysm.A, sysm.B.T], [sysm.B, -sysm.C]]).tocsr()
     r2 = sysm.b - K2 @ out2.x

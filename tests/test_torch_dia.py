@@ -69,7 +69,7 @@ def _pair(case, dtype, seed=3):
     mat = CASES[case](rng)
     jd = jax_pack_dia(mat, dtype=dtype, max_bytes_ratio=0)
     td = dia_from_numpy(np.asarray(jd.data), jd.offsets, jd.shape,
-                        dtype=TORCH[dtype], nnz=jd.nnz)
+                        dtype=TORCH[dtype], nnz=jd.nnz, device="cpu")
     return rng, mat, jd, td
 
 
@@ -140,6 +140,6 @@ def test_pack_dia_matches_jax_pack(dtype):
 
 def test_dia_from_numpy_validates():
     with pytest.raises(ValueError):
-        dia_from_numpy(np.zeros((2, 5)), (1, 0), (5, 5))
+        dia_from_numpy(np.zeros((2, 5)), (1, 0), (5, 5), device="cpu")
     with pytest.raises(ValueError):
-        dia_from_numpy(np.zeros((2, 4)), (0, 1), (5, 5))
+        dia_from_numpy(np.zeros((2, 4)), (0, 1), (5, 5), device="cpu")

@@ -117,7 +117,7 @@ def test_native_build_failure_is_not_swallowed(entry, monkeypatch):
     s = fixtures.random_sqd_system(60, 20, seed=3)
     with pytest.raises(_build.BuildError):
         if entry == "make_preconditioner":
-            make_preconditioner(s.G, s.B, s.C)
+            make_preconditioner(s.G, s.B, s.C, device="cpu")
         else:
             ldl_host.factorize(assemble_kp(s.G, s.B, s.C),
                                method=entry.split("_")[1])

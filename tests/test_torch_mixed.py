@@ -60,7 +60,7 @@ def test_sqd_reaches_f64_accuracy_like_jax():
     s = fixtures.random_sqd_system(160, 60, seed=3)
     sopts = SQD_OPTS
     out = cpt.solve_mixed("cpminres", s.b, s.A, s.B, s.C, s.G,
-                          opts=cpt.SolverOptions(**sopts))
+                          opts=cpt.SolverOptions(**sopts), device="cpu")
     ref = jax_solve_mixed("cpminres", s.b, s.A, s.B, s.C, s.G,
                           opts=cpk.SolverOptions(**sopts))
     assert out.solved and ref.solved
@@ -104,17 +104,18 @@ def test_cvxqp1_mixed_matches_jax(monkeypatch):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         M = cpt.make_preconditioner(s.G, s.B, s.C, dtype=torch.float32,
-                                    options=cpt.PrecondOptions(**BENCH_POPTS))
+                                    options=cpt.PrecondOptions(**BENCH_POPTS),
+                                    device="cpu")
         assert isinstance(M.factor, DFFactorApply)
         own = cpt.solve_mixed("cpminres", s.b, s.A, s.B, s.C, s.G, M=M,
-                              opts=cpt.SolverOptions(**sopts))
+                              opts=cpt.SolverOptions(**sopts), device="cpu")
         ref = jax_solve_mixed("cpminres", s.b, s.A, s.B, s.C, s.G,
                               opts=cpk.SolverOptions(**sopts),
                               precond_opts=cpk.PrecondOptions(**BENCH_POPTS))
         monkeypatch.setattr(common, "vdot", _xla_dot)
         monkeypatch.setattr(cpminres, "vdot", _xla_dot)
         same = cpt.solve_mixed("cpminres", s.b, s.A, s.B, s.C, s.G, M=M,
-                               opts=cpt.SolverOptions(**sopts))
+                               opts=cpt.SolverOptions(**sopts), device="cpu")
     for out in (own, same):
         assert out.solved
         assert _relerr(s, out.x) < 1e-7
@@ -132,10 +133,10 @@ def banded_mixed():
     sopts = dict(atol=0.0, rtol=1e-10, itmax=300)
     host = cpt.solve_mixed("cpminres", s.b, s.A, s.B, s.C, s.G,
                            opts=cpt.SolverOptions(**sopts),
-                           device_resident=False)
+                           device_resident=False, device="cpu")
     dev = cpt.solve_mixed("cpminres", s.b, s.A, s.B, s.C, s.G,
                           opts=cpt.SolverOptions(**sopts),
-                          device_resident=True)
+                          device_resident=True, device="cpu")
     K = sp.bmat([[s.A, s.B.T], [s.B, -s.C]]).tocsr()
     return s, K, sopts, host, dev
 
@@ -170,7 +171,7 @@ def test_max_outer_one_is_honest():
     out = cpt.solve_mixed("cpminres", s.b, s.A, s.B, s.C, s.G,
                           opts=cpt.SolverOptions(atol=0.0, rtol=1e-14,
                                                  itmax=300),
-                          max_outer=1)
+                          max_outer=1, device="cpu")
     assert not out.solved              # one f32 pass cannot reach 1e-14
     assert out.nouter == 1
 
@@ -179,17 +180,17 @@ def test_entry_errors():
     s = fixtures.random_sqd_system(60, 20, seed=0)
     A_op = cpt.aslinearoperator(lambda v: v, shape=s.A.shape)
     with pytest.raises(TypeError, match="explicit matrix"):
-        cpt.solve_mixed("cpminres", s.b, A_op, s.B, s.C, s.G)
+        cpt.solve_mixed("cpminres", s.b, A_op, s.B, s.C, s.G, device="cpu")
     with pytest.raises(ValueError, match="rhs has length"):
-        cpt.solve_mixed("cpminres", s.b[:-1], s.A, s.B, s.C, s.G)
+        cpt.solve_mixed("cpminres", s.b[:-1], s.A, s.B, s.C, s.G, device="cpu")
     C_tri = (s.C + sp.eye(20, k=1) * 1e-6).tocsr()
     with pytest.raises(ValueError, match="df64 DIA form"):
         cpt.solve_mixed("cpminres", s.b, s.A, s.B, C_tri, s.G,
-                        device_resident=True)
+                        device_resident=True, device="cpu")
     # unforced on the CPU: the host loop, which takes any explicit C
     out = cpt.solve_mixed("cpminres", s.b, s.A, s.B, C_tri, s.G,
                           opts=cpt.SolverOptions(atol=1e-9, rtol=1e-9,
-                                                 itmax=300))
+                                                 itmax=300), device="cpu")
     assert out.solved and out.inner_outputs
 
 
@@ -198,9 +199,10 @@ def test_device_loop_packs_each_block_once():
     equal to the f32 DIA packs the driver would build."""
     s = fixtures.banded_saddle_system(2048, 512, bandwidth=3,
                                       with_oracle=False)
-    M = cpt.make_preconditioner(s.G, s.B, s.C, dtype=torch.float32)
+    M = cpt.make_preconditioner(s.G, s.B, s.C, dtype=torch.float32,
+                                device="cpu")
     solver = cpt.prepare_mixed_device("cpminres", s.b, s.A, s.B, s.C, M,
-                                      cpt.SolverOptions())
+                                      cpt.SolverOptions(), device="cpu")
     for op, df, X in ((solver.A_op, solver.Kdf.a, s.A),
                       (solver.B_op, solver.Kdf.b, s.B)):
         ref = pack_dia(X, dtype=torch.float32, device="cpu")
@@ -211,17 +213,19 @@ def test_device_loop_packs_each_block_once():
 
 def test_prepare_rejects_blocks_without_df64_form():
     s = fixtures.random_sqd_system(120, 40, seed=2)
-    M = cpt.make_preconditioner(s.G, s.B, s.C, dtype=torch.float32)
+    M = cpt.make_preconditioner(s.G, s.B, s.C, dtype=torch.float32,
+                                device="cpu")
     assert cpt.prepare_mixed_device("cpminres", s.b, s.A, s.B, s.C, M,
-                                    cpt.SolverOptions()) is None
+                                    cpt.SolverOptions(), device="cpu") is None
 
 
 def test_refine_routes_through_solve_mixed():
     s = fixtures.banded_saddle_system(2048, 512, bandwidth=3)
     sopts = cpt.SolverOptions(atol=0.0, rtol=1e-9, itmax=300)
     out = cpt.solve("cpminres", s.b, s.A, s.B, s.C, s.G, opts=sopts,
-                    dtype=torch.float32, refine=True)
-    mixed = cpt.solve_mixed("cpminres", s.b, s.A, s.B, s.C, s.G, opts=sopts)
+                    dtype=torch.float32, refine=True, device="cpu")
+    mixed = cpt.solve_mixed("cpminres", s.b, s.A, s.B, s.C, s.G, opts=sopts,
+                            device="cpu")
     assert out.solved and out.istatus == common.STATUS_SOLVED
     assert out.x.dtype == torch.float64
     np.testing.assert_array_equal(out.x.numpy(), mixed.x)
@@ -232,7 +236,7 @@ def test_refine_routes_through_solve_mixed():
     # "auto" refines only on a CUDA device: on the CPU an f32 solve stays a
     # single f32 Krylov solve
     plain = cpt.solve("cpminres", s.b, s.A, s.B, s.C, s.G, opts=sopts,
-                      dtype=torch.float32)
+                      dtype=torch.float32, device="cpu")
     assert plain.x.dtype == torch.float32 and not plain.solved
 
 
@@ -241,7 +245,8 @@ def test_mixed_span_in_profile():
     outs = []
     prof = device_profile(lambda: outs.append(cpt.solve_mixed(
         "cpminres", s.b, s.A, s.B, s.C, s.G,
-        opts=cpt.SolverOptions(atol=1e-9, rtol=1e-9, itmax=200))),
+        opts=cpt.SolverOptions(atol=1e-9, rtol=1e-9, itmax=200),
+                                                              device="cpu")),
         span=MIXED_SPAN)
     assert outs[0].solved
     assert 0 < prof.wall_ms <= 1e3 * outs[0].stime * 1.5 + 5

@@ -84,7 +84,7 @@ def test_apply_banded_interleave_matches_jax():
 
     # the port's own entry point picks the same ordering and layout
     M_own = make_preconditioner(s.G, s.B, s.C,
-                                options=PrecondOptions(**POPTS))
+                                options=PrecondOptions(**POPTS), device="cpu")
     np.testing.assert_array_equal(
         M_own.factor.tf1.a.numpy(), M_port.factor.tf1.a.numpy())
     np.testing.assert_array_equal(
@@ -123,7 +123,7 @@ def test_apply_without_ghn_and_conditional_refinement():
         ksp = assemble_kp(s.G, s.B, s.C)
         fac = _factor(s, ksp, "rcm")
         M_port = precond_from_host(fac, ksp, s.n, s.m,
-                                   PrecondOptions(**opts))
+                                   PrecondOptions(**opts), device="cpu")
         M_jax = JaxCPPrecond(
             factor=jax_build_factor(fac, N, 256, np.float64, scan_ok=False),
             kp=jax_csr(ksp.tocsr(), dtype=np.float64), n=s.n, m=s.m,

@@ -18,7 +18,12 @@ before its last line:
    n = 1.25M and at an n that is not a multiple of the scan tile, also held
    against scipy in f64; the df64 DIA SpMV on A, B and B' of the same
    system, bit for bit against its plain version and to 1e-12 against
-   scipy's f64 product), with times from CUDA events;
+   scipy's f64 product; the interleave riffle B7 and its inverse B8 at
+   n = 1M, m = 250k with c = 1 and c = 4, f32 and f64, bit for bit against
+   their plain versions and the explicit permutation, ``torch.index_select``
+   timed beside them), with times from CUDA events (for B7/B8 and
+   ``torch.index_select`` also the device's busy time per call from a
+   profiler trace, ``device_ms``);
 4. mm setup: the Maros-Meszaros systems AUG2D-L and CVXQP3-L
    (``utils/mm.py``), their host LDL^T and device packing, timed;
 5. mm kernels: the banded triangular solve (B4) with its affine scan (B6)
@@ -48,10 +53,22 @@ before its last line:
    error of the JAX package's solution against scipy's ``spsolve``), by
    the factor forms, the solver's stopping test on its own history, a host
    f64 true residual (at its measured multiple of atol + rtol |b|) and the
-   counters.
+   counters;
+11. solvers_banded: CPCG, CP-CG-Lanczos, CPSYMMLQ, CPGMRES(50) and
+   CPDQGMRES(50) (and CPMINRES, warm) through ``solve`` on the main path's
+   system, options and preconditioner, each run cold and then warm with
+   the counters reset just before it: 12 +- 1 iterations and a host f64
+   true residual <= 1e-6 |b| within 10 % of the JAX package's CPU figure
+   (``BANDED_JAX``), and B1, B2, B7 and B8 launched at least once per
+   iteration;
+12. golden_solvers: ``tests/test_golden.py`` on the card in f64 (cvxqp1_m
+   with the Lanczos family and CPDQGMRES at mem 2 and 50, cvxqp2_s with
+   CPGMRES(100), CPGMRES(20) and CPDQGMRES(100)): its golden counts and
+   error bounds against scipy ``spsolve``.
 
 With ``--profile DIR`` it then profiles one more warm solve of each main
-path and of both Maros-Meszaros systems under ``torch.profiler``, prints
+path, of both Maros-Meszaros systems and of the five further solvers on
+the banded system under ``torch.profiler``, prints
 the device's busy time and idle share inside the solve span of each trace
 (``cpkrylov.solve``, and ``cpkrylov.solve_mixed`` with its device loop
 ``cpkrylov.mixed_loop``), and writes the main paths' traces (``profile_main.json``,
@@ -132,6 +149,30 @@ MM_AUG_PANEL = (632, 631)
 # The JAX bench's mixed configuration (bench.py:148-154, 183-184).
 MIXED_SOLVER = dict(atol=0.0, rtol=1e-6, itmax=200, stagwin=25)
 MIXED_INNER_STAGWIN = 25
+
+# The JAX package's f64 solves of the 1M x 250k banded system on a CPU at
+# the main path's settings (GHN update, nitref 1 forced, atol 0, rtol 1e-6,
+# itmax 200, restart and mem 50): 12 iterations each, and these host f64
+# |b - K x| / |b|.  The card is held to 12 +- 1 iterations and to 10 % of
+# each residual (another summation order moves the last digits).
+BANDED_JAX = {"cpcg": 8.211e-7, "cpcglanczos": 8.281e-7,
+              "cpsymmlq": 3.006e-7, "cpgmres": 7.355e-7,
+              "cpdqgmres": 7.355e-7, "cpminres": 7.355e-7}
+BANDED_ITERS = (12, 1)
+BANDED_SLACK = 0.10
+
+# tests/test_golden.py: (solver, options, golden iterations, +-, rel-err
+# bound against scipy's spsolve) per shipped fixture.
+GOLDEN_SOLVERS = {
+    "cvxqp1_m": [("cpcg", {}, 55, 2, 5e-6),
+                 ("cpcglanczos", {}, 54, 2, 5e-6),
+                 ("cpsymmlq", {}, 54, 2, 5e-6),
+                 ("cpdqgmres", {"mem": 2}, 54, 2, 5e-6),
+                 ("cpdqgmres", {"mem": 50}, 54, 2, 5e-6)],
+    "cvxqp2_s": [("cpgmres", {"restart": 100}, 127, 3, 5e-4),
+                 ("cpgmres", {"restart": 20}, 380, 15, 5e-4),
+                 ("cpdqgmres", {"mem": 100}, 120, 3, 5e-4)],
+}
 
 
 def nvidia_smi_card() -> str:
@@ -322,6 +363,108 @@ def phase_kernels(sysm, device, results):
             dfd["bound_ms"], dfd["bound_by"] = bound_ms(
                 2 * 4 * (d.ndiag * mat.shape[0] + mat.shape[1]
                          + mat.shape[0]), 30 * mat.nnz, "float32")
+
+    phase_riffle(sysm.n, sysm.m, device, results)
+
+
+def device_ms(fn, operands, iters: int = 48) -> float:
+    """Device milliseconds per call of ``fn(*operands[i % len])``: the
+    device's busy time (kernels, copies, memsets) over ``iters`` calls in one
+    ``torch.profiler`` trace, over ``iters``.  Back-to-back CUDA-event timing
+    of a kernel of a few microseconds measures the host's launch rate
+    instead (the Python wrapper and ``ctypes``).  The operand sets rotate so
+    that together they exceed the 50 MB L2, as for a caller whose input was
+    not just written."""
+    import torch
+
+    from cpkrylov_tpu_torch.utils.profiling import device_profile
+
+    span = "chip_smoke.device_ms"
+
+    def loop():
+        with torch.profiler.record_function(span):
+            for i in range(iters):
+                fn(*operands[i % len(operands)])
+            torch.cuda.synchronize()
+
+    for ops in operands:
+        fn(*ops)
+    torch.cuda.synchronize()
+    return device_profile(loop, span=span).busy_ms / iters
+
+
+def phase_riffle(n, m, device, results):
+    """B7 and B8 at the main path's shape: the ordering's c = 1 and, with an
+    empty x-tail, c = n // m; exact against their plain versions and against
+    the explicit permutation.  ``torch.index_select`` with the permutation
+    is the one library call computing the same function.  ``ms``,
+    ``plain_ms`` and ``library_ms`` are CUDA-event times, as for every
+    kernel (host overhead included: what a solve pays per call);
+    ``device_ms`` and ``library_device_ms`` are the device's busy time per
+    call from a profiler trace."""
+    import numpy as np
+    import torch
+
+    from cpkrylov_tpu_torch.precond import cuda_interleave as ci
+    from cpkrylov_tpu_torch.precond.permute import InterleavePermute
+    from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
+
+    rng = np.random.default_rng(5)
+    fwd, inv = results["interleave"], results["uninterleave"]
+    for c in (1, n // m):
+        perm = torch.as_tensor(InterleavePermute(n, m, c).perm, device=device)
+        iperm = torch.argsort(perm)
+        for dtype in (torch.float64, torch.float32):
+            tname = str(dtype).split(".")[1]
+            # six inputs of 5-10 MB: more than the L2 together
+            zs = [torch.as_tensor(rng.standard_normal(n + m)).to(
+                device=device, dtype=dtype) for _ in range(6)]
+            ws = [ci.interleave(z, n, m, c) for z in zs]
+            z, w = zs[0], ws[0]
+            back = ci.uninterleave(w, n, m, c)
+            torch.cuda.synchronize()
+            exact = {
+                "interleave": (torch.equal(w, ci.interleave_plain(z, n, m, c))
+                               and torch.equal(w, z[perm])),
+                "uninterleave": (torch.equal(
+                    back, ci.uninterleave_plain(w, n, m, c))
+                    and torch.equal(back, z)),
+            }
+            nbytes = 2 * (n + m) * z.element_size()
+            calls = {
+                "interleave": (zs, perm, lambda v: ci.interleave(v, n, m, c),
+                               lambda v: ci.interleave_plain(v, n, m, c)),
+                "uninterleave": (ws, iperm,
+                                 lambda v: ci.uninterleave(v, n, m, c),
+                                 lambda v: ci.uninterleave_plain(v, n, m, c)),
+            }
+            for name, res in (("interleave", fwd), ("uninterleave", inv)):
+                vs, idx, kern, plain = calls[name]
+                ops = [(v,) for v in vs]
+
+                def lib(v, idx=idx):
+                    return torch.index_select(v, 0, idx)
+
+                ms = cuda_time_ms(lambda: kern(vs[0]))
+                pms = cuda_time_ms(lambda: plain(vs[0]))
+                lms = cuda_time_ms(lambda: lib(vs[0]))
+                dms = device_ms(kern, ops)
+                ldms = device_ms(lib, ops)
+                bms, by = bound_ms(nbytes, 0, tname)
+                print(f"kernel {name} {tname} n={n} m={m} c={c} "
+                      f"tail={n - c * m} exact={exact[name]} ms={ms:.4f} "
+                      f"plain_ms={pms:.4f} library_ms(torch.index_select)="
+                      f"{lms:.4f} bound_ms={bms:.4f} ({by}) "
+                      f"device_ms={dms:.4f} library_device_ms={ldms:.4f}",
+                      flush=True)
+                if not exact[name]:
+                    raise RuntimeError(f"{name} {tname} c={c}: differs from "
+                                       "its plain version")
+                if c == 1 and dtype == torch.float64:   # the main path's
+                    res.update(ms=ms, plain_ms=pms, library_ms=lms,
+                               bound_ms=bms, bound_by=by, device_ms=dms,
+                               library_device_ms=ldms)
+            del zs, ws, z, w, back
 
 
 def phase_mm_setup(device):
@@ -662,7 +805,22 @@ def phase_main_path(sysm, device):
         if count < 4 * out.niters:
             raise RuntimeError(f"{name} launched {count} times in "
                                f"{out.niters} iterations (< 4 per iter)")
+    check_riffle(f.pin, launches, out.niters, "main path")
     return launches, M
+
+
+def check_riffle(pin, launches, niters, what):
+    """The path's ordering is the interleave at c = 1, and B7 and B8 ran at
+    least once per iteration (around every direct solve)."""
+    from cpkrylov_tpu_torch.precond.permute import InterleavePermute
+
+    if not (isinstance(pin, InterleavePermute) and pin.c == 1):
+        raise RuntimeError(f"{what}: the ordering is {pin!r}, not the "
+                           "interleave at c = 1")
+    for name in ("interleave", "uninterleave"):
+        if launches[name] < max(niters, 1):
+            raise RuntimeError(f"{what}: {name} launched {launches[name]} "
+                               f"times in {niters} iterations")
 
 
 def phase_profile(sysm, device, M, M32, mm, outdir):
@@ -697,10 +855,19 @@ def phase_profile(sysm, device, M, M32, mm, outdir):
                 "cpminres", msys.b, msys.A, msys.B, msys.C, msys.G,
                 opts=cpt.SolverOptions(**MM_SOLVER), M=mM,
                 dtype=torch.float64, device=device))
+    for solver in BANDED_JAX:
+        if solver != "cpminres":
+            runs["solvers_banded_" + solver] = (
+                "profile_banded_" + solver, SOLVE_SPAN,
+                lambda solver=solver: cpt.solve(
+                    solver, sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
+                    device=device, dtype=torch.float64, opts=opts,
+                    precond_opts=popts, M=M))
     for name, (stem, span, fn) in runs.items():
         outs = []
-        # the Maros-Meszaros traces run to tens of MB: their tables only
-        trace = (None if name.startswith("mm_")
+        # the Maros-Meszaros traces run to tens of MB, and the solvers'
+        # repeat the main path's: their tables only
+        trace = (None if name.startswith(("mm_", "solvers_"))
                  else os.path.join(outdir, stem + ".json"))
         prof = device_profile(lambda: outs.append(fn()), trace_path=trace,
                               span=span)
@@ -874,7 +1041,129 @@ def phase_main_mixed(sysm, device):
         if launches[name] < max(bound, 1):
             raise RuntimeError(f"main_mixed: {name} launched "
                                f"{launches[name]} times (< {bound})")
+    check_riffle(M32.factor.pin, launches, out.niters, "main_mixed")
     return launches, M32
+
+
+def phase_solvers_banded(sysm, M, device):
+    """The other five solvers on the main path's system, options and
+    preconditioner (and CPMINRES again, warm, beside them), each run cold
+    once and then warm with the counters reset just before it; held to the
+    JAX package's CPU iterations and true residuals (``BANDED_JAX``).
+    Returns the launches summed over the warm runs."""
+    import numpy as np
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    popts = cpt.PrecondOptions(residual_update=True, nitref=1,
+                               force_itref=True)
+    opts = cpt.SolverOptions(atol=0.0, rtol=1e-6, itmax=200)
+    bnorm = float(np.linalg.norm(sysm.b))
+    total = {}
+    for name, jax_resid in BANDED_JAX.items():
+        def run():
+            return cpt.solve(name, sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
+                             device=device, dtype=torch.float64, opts=opts,
+                             precond_opts=popts, M=M)
+
+        cold = run()
+        reset_launches()
+        out = run()
+        launches = launch_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        x = out.x.cpu().numpy()
+        true_rel = float(np.linalg.norm(sysm.b - sysm.K @ x) / bnorm)
+        per_iter = sum(launches.values()) / max(out.niters, 1)
+        print(f"solvers_banded {name} f64 n={sysm.n} m={sysm.m} "
+              f"solved={out.solved} iters={out.niters} "
+              f"true_rel_resid={true_rel:.4e} (JAX CPU {jax_resid:.4e}) "
+              f"stime_s={out.stime:.4f} cold_stime_s={cold.stime:.4f} "
+              f"ms_per_iter={1e3 * out.stime / max(out.niters, 1):.4f} "
+              f"kernel_launches_per_iter={per_iter:.1f} "
+              f"interleave={launches['interleave']} "
+              f"uninterleave={launches['uninterleave']} "
+              f"launches={launches}", flush=True)
+        if not out.solved:
+            raise RuntimeError(f"solvers_banded {name}: not solved, status "
+                               f"{out.istatus}")
+        if abs(out.niters - BANDED_ITERS[0]) > BANDED_ITERS[1]:
+            raise RuntimeError(f"solvers_banded {name}: {out.niters} "
+                               f"iterations, the JAX package takes "
+                               f"{BANDED_ITERS[0]}")
+        if not (np.all(np.isfinite(x)) and x.shape == (sysm.n + sysm.m,)):
+            raise RuntimeError(f"solvers_banded {name}: solution not finite "
+                               "or wrong shape")
+        if not (true_rel <= 1e-6
+                and abs(true_rel - jax_resid) <= BANDED_SLACK * jax_resid):
+            raise RuntimeError(f"solvers_banded {name}: true residual "
+                               f"{true_rel:.4e}, the JAX package's "
+                               f"{jax_resid:.4e}")
+        for kname in ("dia_spmv", "bidiag_scan"):
+            if launches[kname] < out.niters:
+                raise RuntimeError(f"solvers_banded {name}: {kname} launched "
+                                   f"{launches[kname]} times")
+        check_riffle(M.factor.pin, launches, out.niters,
+                     f"solvers_banded {name}")
+    return total
+
+
+def phase_golden_solvers(device):
+    """``tests/test_golden.py`` on the card in f64: the shipped fixtures'
+    golden counts and error bounds for the five solvers besides CPMINRES
+    (RCM gather ordering, CSR products of B5).  Returns the launches summed
+    over the solves."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.utils.fixtures import load_fixture
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    popts = cpt.PrecondOptions(residual_update=True, nitref=1,
+                               force_itref=True, itref_tol=1e-8)
+    total = {}
+    for fixture, cases in GOLDEN_SOLVERS.items():
+        fix = load_fixture(fixture)
+        M = cpt.make_preconditioner(fix.G, fix.B, fix.C, options=popts,
+                                    dtype=torch.float64, device=device)
+        x_ref = spla.spsolve(fix.K.tocsc(), fix.b)
+        for name, extra, iters, slack, relmax in cases:
+            reset_launches()
+            out = cpt.solve(name, fix.b, fix.A, fix.B, fix.C, fix.G, M=M,
+                            device=device, dtype=torch.float64,
+                            precond_opts=popts,
+                            opts=cpt.SolverOptions(atol=1e-6, rtol=1e-6,
+                                                   itmax=500, **extra))
+            launches = launch_counts()
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            rel = float(np.linalg.norm(out.x.cpu().numpy() - x_ref)
+                        / np.linalg.norm(x_ref))
+            print(f"golden_solvers {fixture} {name} {extra} f64 "
+                  f"solved={out.solved} iters={out.niters} (golden {iters} "
+                  f"+- {slack}) rel_err={rel:.3e} (< {relmax}) "
+                  f"resid0={out.resid_history[0]:.4e} "
+                  f"stime_s={out.stime:.4f} "
+                  f"csr_spmv={launches['csr_spmv']}", flush=True)
+            if not (out.solved and abs(out.niters - iters) <= slack
+                    and rel < relmax):
+                raise RuntimeError(f"golden_solvers {fixture} {name} {extra}"
+                                   " check failed")
+            if (fixture == "cvxqp2_s" and extra == {"restart": 100}
+                    and not abs(out.resid_history[0] - 1.19e2) / 1.19e2
+                    < 0.05):
+                raise RuntimeError("golden_solvers cvxqp2_s cpgmres: first "
+                                   "residual off the golden 1.19e2")
+            if launches["csr_spmv"] < out.niters:
+                raise RuntimeError(f"golden_solvers {fixture} {name}: the "
+                                   "CSR products did not go through B5")
+    return total
 
 
 def kernel_entry(name: str, source: str, replaces: str) -> dict:
@@ -884,7 +1173,7 @@ def kernel_entry(name: str, source: str, replaces: str) -> dict:
 
 
 def run_phases(device, profile_dir=None) -> list:
-    """Phases 3-10 (and the profile when asked); returns the kernels' JSON
+    """Phases 3-12 (and the profile when asked); returns the kernels' JSON
     entries."""
     import torch
 
@@ -904,6 +1193,12 @@ def run_phases(device, profile_dir=None) -> list:
                                  "cpkrylov_tpu/ops/pallas_spmv.py:25"),
         "affine_scan": kernel_entry("affine_scan", "band_tri.cu",
                                     "cpkrylov_tpu/precond/pallas_tri.py:36"),
+        "interleave": kernel_entry(
+            "interleave", "interleave.cu",
+            "cpkrylov_tpu/precond/pallas_interleave.py:26"),
+        "uninterleave": kernel_entry(
+            "uninterleave", "interleave.cu",
+            "cpkrylov_tpu/precond/pallas_interleave.py:32"),
     }
     t0 = time.perf_counter()
     sysm = fixtures.banded_saddle_system(1_000_000, 250_000, bandwidth=3)
@@ -920,9 +1215,11 @@ def run_phases(device, profile_dir=None) -> list:
     by_path = {"golden_mixed": phase_golden_mixed(device)}
     by_path["main_path"], M = phase_main_path(sysm, device)
     by_path["main_mixed"], M32 = phase_main_mixed(sysm, device)
+    by_path["solvers_banded"] = phase_solvers_banded(sysm, M, device)
     for name in ("aug2d_l", "cvxqp3_l"):
         msys, _, mM, setup = mm[name]
         by_path[name] = phase_mm_solve(name, msys, mM, setup, device)
+    by_path["golden_solvers"] = phase_golden_solvers(device)
     if profile_dir:
         phase_profile(sysm, device, M, M32, mm, profile_dir)
 
@@ -934,10 +1231,15 @@ def run_phases(device, profile_dir=None) -> list:
         entry["launches_by_path"] = counts
         if entry["launches"] == 0:
             raise RuntimeError(f"{name} was launched no time on the paths")
+        if name in ("interleave", "uninterleave") and not all(
+                counts[p] > 0 for p in ("main_path", "main_mixed",
+                                        "solvers_banded")):
+            raise RuntimeError(f"{name} missing on a banded path: {counts}")
         kernels.append({k: entry[k] for k in (
             "name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")})
+            "bound_by", "library_ms", "device_ms", "library_device_ms")
+            if k in entry})
     return kernels
 
 

@@ -76,6 +76,9 @@ _KERNEL_SIGNATURES = {
     # indptr (int64), indices (int32), data, nrows, x, y, stream
     "cpkt_csr_spmv_f32": (_P, _P, _P, _I64, _P, _P, _P),
     "cpkt_csr_spmv_f64": (_P, _P, _P, _I64, _P, _P, _P),
+    # src, dst, n, m, c, itemsize (4 or 8), stream
+    "cpkt_interleave": (_P, _P, _I64, _I64, _I64, _I32, _P),
+    "cpkt_uninterleave": (_P, _P, _I64, _I64, _I64, _I32, _P),
 }
 
 

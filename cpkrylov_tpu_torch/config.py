@@ -1,9 +1,7 @@
 """Typed solver and preconditioner options.
 
 Port of ``cpkrylov_tpu/config.py``: the same frozen dataclasses with the
-same defaults, holding only the fields the ported code reads.  Options of
-parts not ported yet (the GMRES and CG-Lanczos solvers) come with those
-parts, so setting them cannot be silently ignored.
+same defaults, holding the fields the ported code reads.
 """
 from __future__ import annotations
 
@@ -30,12 +28,24 @@ class PrecondOptions:
 
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
-    """Options of the Krylov kernels (reference defaults: atol and rtol
-    1e-6; ``itmax`` None resolves per kernel, n for CPMINRES)."""
+    """Options of the Krylov kernels.
+
+    Defaults mirror the reference kernels (atol/rtol 1e-6 everywhere,
+    e.g. kernels/cpminres.m:93-96; restart=50 kernels/cpgmres.m:103;
+    mem=50 kernels/cpdqgmres.m:103; btol=0 kernels/cpcglanczos.m:112).
+    ``itmax`` defaults are kernel-specific (n for the Lanczos family, n+m for
+    the Arnoldi family) and resolved by each kernel when left as None.
+    """
 
     atol: float = 1.0e-6
     rtol: float = 1.0e-6
     itmax: int | None = None
+    btol: float = 0.0        # cpcglanczos backward-error tolerance
+    restart: int = 50        # cpgmres restart length
+    mem: int = 50            # cpdqgmres memory
+    reorth: bool = False     # cpgmres second orthogonalization pass
+    #                          (documented but unimplemented in the
+    #                          reference, cpgmres.m:81-82)
     verbose: bool = False    # per-iteration printing
     stagwin: int = 0         # stop after this many iterations without a
     #                          10% improvement of the best residual (0 = off)

@@ -1,7 +1,8 @@
 """Top-level driver: build the constraint preconditioner, shift the RHS,
 run the kernel, un-shift — the reg_cpkrylov equivalent.
 
-Port of ``cpkrylov_tpu/driver.py`` for CPMINRES in the solve's own dtype:
+Port of ``cpkrylov_tpu/driver.py`` for the six kernels of ``solvers/``
+in the solve's own dtype:
   * build and time the preconditioner (reg_cpkrylov.m:128-132),
   * shift the system so the RHS becomes [b1'; 0] when b2 != 0 (l.152-160),
   * run the kernel (l.163), un-shift (l.166-173), attach ptime/stime.
@@ -25,13 +26,11 @@ from .config import PrecondOptions, SolverOptions
 from .operators.linop import aslinearoperator
 from .ops.dia import pack_dia
 from .precond.cp import CPPrecond, make_preconditioner
+from .solvers import SOLVERS
 from .solvers.common import KrylovResult
-from .solvers.cpminres import cpminres
 from .utils.device import resolve_device, torch_dtype
 from .utils.profiling import SOLVE_SPAN
 from .utils.timing import sync
-
-SOLVERS = {"cpminres": cpminres}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,12 +91,13 @@ def solve(method, b, A, B, C, G, *,
           refine: bool | str = "auto") -> SolveOutput:
     """Solve the regularized saddle-point system [A B'; B -C] [x1;x2] = b.
 
-    ``method`` is "cpminres" (or the kernel function).  ``A`` may be a
-    matrix or an operator; B, C, G must be explicit host matrices since
-    they form the preconditioner.  Every vector, operator and factor lives
-    on ``device``: the CUDA card by default, "cpu" on request; the card
-    without CUDA raises.  ``dtype``
-    defaults to the rhs dtype.  Pass ``M`` to reuse a built preconditioner.
+    ``method`` is a kernel name ("cpminres", "cpcg", "cpcglanczos",
+    "cpsymmlq", "cpgmres", "cpdqgmres") or the kernel function.  ``A`` may
+    be a matrix or an operator; B, C, G must be explicit host matrices
+    since they form the preconditioner.  Every vector, operator and factor
+    lives on ``device``: the CUDA card by default, "cpu" on request; the
+    card without CUDA raises.  ``dtype`` defaults to the rhs dtype.  Pass
+    ``M`` to reuse a built preconditioner.
 
     ``refine`` controls the mixed-precision outer refinement: f32 solves
     become the inner loop of a true-residual refinement (``solve_mixed``)

@@ -174,10 +174,10 @@ def _solve_mixed_host(method, b, A, B, C, G, A_h, B_h, C_h, M32, opts, *,
 
     # The stagnation window bounds each inner pass near the f32 floor; its
     # STATUS_STAGNATED exit still returns the best iterate, which is the
-    # correction the outer loop wants.  (The JAX package also sets
-    # reorth=True here; only cpgmres reads it, and it comes with cpgmres.)
+    # correction the outer loop wants.  ``reorth`` (read by cpgmres only)
+    # pays exactly at the f32 floor, as in the JAX package.
     inner_opts = dataclasses.replace(opts, atol=0.0, rtol=INNER_RTOL,
-                                     stagwin=inner_stagwin)
+                                     stagwin=inner_stagwin, reorth=True)
     bnorm = float(np.linalg.norm(b))
     stop = opts.atol + opts.rtol * bnorm
 
@@ -343,9 +343,8 @@ def prepare_mixed_device(method, b, A, B, C, M32, opts, *,
     inner_rtol = INNER_RTOL
     if M32.factor_exact and float(stop) > 0.0 and bnorm > 0.0:
         inner_rtol = min(inner_rtol, max(0.3 * float(stop) / bnorm, 1e-7))
-    # (reorth is left out: only cpgmres reads it, see the host loop)
     inner_opts = dataclasses.replace(opts, atol=0.0, rtol=float(inner_rtol),
-                                     stagwin=inner_stagwin)
+                                     stagwin=inner_stagwin, reorth=True)
     solver = DeviceMixedSolver(
         method=method, b_hi=torch.as_tensor(bh).to(device),
         b_lo=torch.as_tensor(bl).to(device), Kdf=Kdf, A_op=A_op, C_op=C_op,

@@ -180,6 +180,11 @@ class CPPrecond:
         state, y, rnorm = self.apply(state, torch.cat([zn, zm]))
         return state, y[: self.n], y[self.n:], rnorm
 
+    def mul_kp(self, z: torch.Tensor) -> torch.Tensor:
+        """Multiply by K_P itself: the reference's ``divide`` mode, undoing a
+        preconditioner application (opLDL2.m:193-195)."""
+        return spmv.matvec(self.kp, z)
+
 
 # ---------------------------------------------------------------------------
 # Host-side construction

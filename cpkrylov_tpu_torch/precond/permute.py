@@ -5,9 +5,10 @@ applied as ``z -> z[perm]`` before the triangular solves and inverted after:
 
 * ``IdentityPermute`` — no-op.
 * ``InterleavePermute`` — the structured riffle of the n-part and m-part
-  (c x-entries then one y-entry per group, then an x-tail), applied with
-  reshapes and one concatenation.  ``make_preconditioner`` seeds the
-  factorization with it when K_P stays banded under it.
+  (c x-entries then one y-entry per group, then an x-tail), applied by the
+  CUDA kernels B7/B8 (``cuda_interleave.py``) for a CUDA tensor and by their
+  plain reshape/concatenation versions on the CPU.  ``make_preconditioner``
+  seeds the factorization with it when K_P stays banded under it.
 * ``GatherPermute`` — any other permutation (RCM and friends), as an index
   gather.
 
@@ -21,6 +22,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .cuda_interleave import interleave, uninterleave
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,18 +63,10 @@ class InterleavePermute:
         return out
 
     def apply(self, z: torch.Tensor) -> torch.Tensor:        # z[perm]
-        cm = self.c * self.m
-        a = z[:cm].reshape(self.m, self.c)
-        b = z[self.n: self.n + self.m].reshape(self.m, 1)
-        head = torch.cat([a, b], dim=1).reshape(-1)
-        return torch.cat([head, z[cm: self.n]])
+        return interleave(z.contiguous(), self.n, self.m, self.c)
 
     def apply_inv(self, z: torch.Tensor) -> torch.Tensor:    # out[perm] = z
-        cm = self.c * self.m
-        g = z[: self.m * (self.c + 1)].reshape(self.m, self.c + 1)
-        return torch.cat([g[:, : self.c].reshape(-1),
-                          z[self.m * (self.c + 1):],
-                          g[:, self.c]])
+        return uninterleave(z.contiguous(), self.n, self.m, self.c)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -39,7 +39,8 @@ class KrylovResult:
     """Solver output: solution pair + stats (the reference's x/y/stats/flag).
 
     ``resid_history`` is a host array of ``itmax + 1`` slots padded with NaN
-    past ``niters``, as in the JAX package.
+    past ``niters``, as in the JAX package.  CPSYMMLQ also returns its CG,
+    LQ and QR histories (cpsymmlq.m:363-366); they are None elsewhere.
     """
 
     x: torch.Tensor
@@ -48,6 +49,9 @@ class KrylovResult:
     resid_history: np.ndarray
     solved: bool
     istatus: int
+    cg_resid_history: np.ndarray | None = None
+    lq_resid_history: np.ndarray | None = None
+    qr_resid_history: np.ndarray | None = None
 
     @property
     def status(self) -> str:
@@ -57,6 +61,46 @@ class KrylovResult:
         """Residual history with the NaN padding stripped."""
         h = np.asarray(self.resid_history)
         return h[~np.isnan(h)]
+
+
+def sym_givens(a: torch.Tensor, b: torch.Tensor):
+    """Symmetric (reflector-form) Givens rotation, branch for branch the
+    reference's SymGivens.m (Saunders & Choi) as a ``torch.where`` lattice
+    on 0-d tensors, so it stays on the device.
+
+    Returns (c, s, d) with [c s; s -c] [a; b] = [d; 0]; ``torch.sign``
+    follows MATLAB's sign(0) = 0.
+    """
+    abs_a, abs_b = torch.abs(a), torch.abs(b)
+    b_zero = b == 0
+    a_zero = a == 0
+    b_dominant = abs_b > abs_a
+    one = torch.ones_like(a)
+    zero = torch.zeros_like(a)
+    a_safe = torch.where(a_zero, one, a)
+    b_safe = torch.where(b_zero, one, b)
+
+    # branch: |b| > |a|
+    t3 = a / b_safe
+    s3 = torch.sign(b) / torch.sqrt(1 + t3 * t3)
+    c3 = s3 * t3
+    d3 = b / torch.where(s3 == 0, one, s3)
+    # branch: |a| >= |b| (both nonzero)
+    t4 = b / a_safe
+    c4 = torch.sign(a) / torch.sqrt(1 + t4 * t4)
+    s4 = c4 * t4
+    d4 = a / torch.where(c4 == 0, one, c4)
+
+    c = torch.where(b_zero, torch.where(a_zero, one, torch.sign(a)),
+                    torch.where(a_zero, zero,
+                                torch.where(b_dominant, c3, c4)))
+    s = torch.where(b_zero, zero,
+                    torch.where(a_zero, torch.sign(b),
+                                torch.where(b_dominant, s3, s4)))
+    d = torch.where(b_zero, abs_a,
+                    torch.where(a_zero, abs_b,
+                                torch.where(b_dominant, d3, d4)))
+    return c, s, d
 
 
 def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -124,6 +168,21 @@ def lanczos_step(A, C, M, mstate, vk, qk, vkm1, qkm1, beta, e100):
     return mstate, u, t, alpha, vkp1, qkp1, beta_new, indefinite
 
 
+def initial_lanczos_pair(b, m: int, M, mstate, e100: float):
+    """Initial Lanczos pair (v1, q1) and beta1 (cpminres.m:130-147 et al.).
+    Returns (mstate, v1, q1, beta1, indefinite) with ``indefinite`` a 0-d
+    bool tensor."""
+    zerom = torch.zeros(m, dtype=b.dtype, device=b.device)
+    mstate, w1, w2, _ = M.apply_nm(mstate, b, zerom)
+    vkp1 = w1
+    qkp1 = -w2
+    beta0 = vdot(b, vkp1)
+    indefinite = beta0 < -e100 * (1 + torch.abs(beta0))
+    beta = torch.sqrt(torch.abs(beta0))
+    vkp1, qkp1 = safe_normalize_pair(vkp1, qkp1, beta)
+    return mstate, vkp1, qkp1, beta, indefinite
+
+
 def stag_init(resid0: float):
     """(best residual seen, iterations since the last >=10% improvement)
     for the opt-in stagnation window ``opts.stagwin`` (host values)."""
@@ -164,18 +223,27 @@ def apply_manifold_veto(solved: bool, istatus: int, B, C_op, x, y,
     return solved, istatus
 
 
+def true_resid(b, A, C_op, M, mstate, x, y):
+    """The true preconditioned residual of (x, y), computed the way the
+    GMRES restart reseeds its basis (cpgmres.m:167-171): one A matvec, one
+    C matvec, one preconditioner application, one coupled norm, clamped at
+    0 where the reference would go complex.  Returns ``(mstate, v, q,
+    resid)``: (v, q) is the unnormalized basis pair of the reseed and
+    ``resid`` a 0-d tensor."""
+    u = b - A.matvec(x)
+    t = C_op.matvec(y)
+    mstate, w1, w2, _ = M.apply_nm(mstate, u, -t)
+    q1 = y - w2
+    resid = torch.sqrt(torch.clamp(coupled_dot(u, w1, t, q1), min=0.0))
+    return mstate, w1, q1, resid
+
+
 def breakdown_resid_recheck(solved: bool, istatus: int, resid_est: float,
                             stop_tol: float, b, A, C_op, M, mstate, x, y):
-    """Re-judge ``solved`` from a freshly computed residual on
-    breakdown-class exits (cpgmres.m:167-171 style: one A matvec, one C
-    matvec, one preconditioner application, one coupled norm).  Returns
+    """Re-judge ``solved`` from a freshly computed residual
+    (:func:`true_resid`) on breakdown-class exits.  Returns
     ``(solved, resid)``."""
     if istatus not in (STATUS_INDEFINITE, STATUS_BREAKDOWN):
         return solved, resid_est
-    u = b - A.matvec(x)
-    t = C_op.matvec(y)
-    _, w1, w2, _ = M.apply_nm(mstate, u, -t)
-    q1 = y - w2
-    dot = coupled_dot(u, w1, t, q1)
-    resid_true = float(torch.sqrt(torch.clamp(dot, min=0.0)))
+    resid_true = float(true_resid(b, A, C_op, M, mstate, x, y)[3])
     return resid_true <= stop_tol, resid_true

@@ -17,9 +17,8 @@ from ..precond.cp import CPPrecond, CPState
 from .common import (KrylovResult, STATUS_INDEFINITE, STATUS_ITMAX,
                      STATUS_SOLVED, STATUS_STAGNATED, apply_manifold_veto,
                      breakdown_resid_recheck, eps100, history_init,
-                     lanczos_step, resolve_itmax, resolve_operators,
-                     safe_normalize_pair, stag_init, stag_stop, stag_update,
-                     vdot)
+                     initial_lanczos_pair, lanczos_step, resolve_itmax,
+                     resolve_operators, stag_init, stag_stop, stag_update)
 
 
 def cpminres(b: torch.Tensor, A, C, M: CPPrecond,
@@ -46,13 +45,8 @@ def cpminres(b: torch.Tensor, A, C, M: CPPrecond,
     zerom = torch.zeros(m, dtype=dtype, device=dev)
 
     # Initial Lanczos pair and residual norm (cpminres.m:119-153).
-    mstate, w1, w2, _ = M.apply_nm(mstate, b, zerom)
-    vkp1 = w1
-    qkp1 = -w2
-    beta0 = vdot(b, vkp1)                              # cpminres.m:134
-    indefinite0 = beta0 < -e100 * (1 + torch.abs(beta0))
-    beta = torch.sqrt(torch.abs(beta0))
-    vkp1, qkp1 = safe_normalize_pair(vkp1, qkp1, beta)
+    mstate, vkp1, qkp1, beta, indefinite0 = initial_lanczos_pair(
+        b, m, M, mstate, e100)
 
     stop_t = opts.atol + opts.rtol * beta              # cpminres.m:164
     resid, stop_tol, indefinite = torch.stack(

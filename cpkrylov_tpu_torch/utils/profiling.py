@@ -15,7 +15,7 @@ Port of the ``trace`` part of ``cpkrylov_tpu/utils/profiling.py``; its
 work model waits for the benchmark.
 
 :func:`launch_counts` reads the ``LAUNCHES`` counters of the hand-written
-kernels B1-B6 (each wrapper adds one where it launches its kernel, and
+kernels B1-B8 (each wrapper adds one where it launches its kernel, and
 nowhere else), and :func:`reset_launches` sets them to 0, so a run can show
 which kernels carried it.
 """
@@ -33,7 +33,7 @@ SOLVE_SPAN = "cpkrylov.solve"   # record_function span around the iteration
 MIXED_SPAN = "cpkrylov.solve_mixed"   # ... around a whole mixed solve
 MIXED_LOOP_SPAN = "cpkrylov.mixed_loop"   # ... around its device loop
 
-# kernel name -> (wrapper module, its counter): B1, B2, B3, B4, B5, B6
+# kernel name -> (wrapper module, its counter): B1-B8
 KERNEL_COUNTERS = {
     "dia_spmv": ("cpkrylov_tpu_torch.ops.cuda_dia", "LAUNCHES"),
     "bidiag_scan": ("cpkrylov_tpu_torch.precond.cuda_bidiag", "LAUNCHES"),
@@ -41,6 +41,9 @@ KERNEL_COUNTERS = {
     "band_tri": ("cpkrylov_tpu_torch.precond.cuda_tri", "LAUNCHES"),
     "csr_spmv": ("cpkrylov_tpu_torch.ops.cuda_spmv", "LAUNCHES"),
     "affine_scan": ("cpkrylov_tpu_torch.precond.cuda_tri", "SCAN_LAUNCHES"),
+    "interleave": ("cpkrylov_tpu_torch.precond.cuda_interleave", "LAUNCHES"),
+    "uninterleave": ("cpkrylov_tpu_torch.precond.cuda_interleave",
+                     "INV_LAUNCHES"),
 }
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

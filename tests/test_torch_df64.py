@@ -36,7 +36,7 @@ from cpkrylov_tpu_torch.precond.cp import (FactorApply, assemble_kp,
 from cpkrylov_tpu_torch.precond.cuda_bidiag import BidiagTriFactor
 from cpkrylov_tpu_torch.precond.df_factor import (DFFactorApply,
                                                   build_df_factor_apply)
-from cpkrylov_tpu_torch.solvers import common, cpminres
+from cpkrylov_tpu_torch.solvers import common
 from cpkrylov_tpu_torch.utils import fixtures
 from cpkrylov_tpu_torch.utils.convert import df_saddle_from
 
@@ -308,7 +308,6 @@ def test_f32_cpminres_trajectory_matches_jax(cvxqp1_sys, monkeypatch):
                         opts=cpt.SolverOptions(**sopts), dtype=torch.float32,
                         device="cpu")
         monkeypatch.setattr(common, "vdot", _xla_dot)
-        monkeypatch.setattr(cpminres, "vdot", _xla_dot)
         same = cpt.solve("cpminres", b32, s.A, s.B, s.C, s.G,
                          opts=cpt.SolverOptions(**sopts),
                          dtype=torch.float32, device="cpu")

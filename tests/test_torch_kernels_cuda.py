@@ -19,7 +19,8 @@ versions: both are held against the plain versions and, for B4, scipy's
 f64 ``spsolve_triangular`` on diagonally dominant bands (relative 2-norm,
 f32 1e-4 and f64 1e-12; the CPU plain version measures 5e-8 and 2.2e-16
 there).  The CSR kernel (B5) sums each row in stored order, every step
-rounded, so it must equal its plain version exactly.
+rounded, so it must equal its plain version exactly.  The interleave riffle
+(B7) and its inverse (B8) move entries without arithmetic: exact.
 """
 import numpy as np
 import pytest
@@ -151,6 +152,29 @@ def test_banded_main_path_goes_through_kernels(cuda):
     assert out.solved
     assert cuda_dia.LAUNCHES - dia0 >= 4 * out.niters
     assert cuda_bidiag.LAUNCHES - scan0 >= 4 * out.niters
+    r = s.K @ out.x.cpu().numpy() - s.b
+    assert np.linalg.norm(r) <= 1e-6 * np.linalg.norm(s.b)
+
+
+@pytest.mark.parametrize("name", ["cpcg", "cpcglanczos", "cpsymmlq",
+                                  "cpgmres", "cpdqgmres"])
+def test_banded_solvers_go_through_riffle(cuda, name):
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.utils import fixtures
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    s = fixtures.banded_saddle_system(20_000, 5_000)
+    reset_launches()
+    out = cpt.solve(name, s.b, s.A, s.B, s.C, s.G, device=cuda,
+                    dtype=torch.float64,
+                    opts=cpt.SolverOptions(atol=0.0, rtol=1e-6, itmax=200),
+                    precond_opts=cpt.PrecondOptions(
+                        residual_update=True, nitref=1, force_itref=True))
+    counts = launch_counts()
+    assert out.solved, out.result.status
+    for kernel in ("dia_spmv", "bidiag_scan", "interleave", "uninterleave"):
+        assert counts[kernel] >= out.niters, (kernel, counts)
     r = s.K @ out.x.cpu().numpy() - s.b
     assert np.linalg.norm(r) <= 1e-6 * np.linalg.norm(s.b)
 
@@ -366,6 +390,47 @@ def test_new_wrappers_raise_on_bad_operands(cuda):
         affine_scan(torch.ones(1025, 1025, 1, dtype=torch.float64,
                                device=cuda),
                     torch.ones(1025, 1, dtype=torch.float64, device=cuda))
+
+
+# (n, m, c): c = 1 and c = n // m, a ragged last block of any power-of-two
+# size, an empty tail (n = c m), and the main path's shape
+RIFFLE_CASES = [(20, 5, 4), (20, 5, 1), (37, 16, 2), (16389 * 4, 16389, 4),
+                (65_541, 16_389, 3), (1_000_000, 250_000, 1)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,m,c", RIFFLE_CASES)
+def test_interleave_kernels_match_plain_bitwise(cuda, dtype, n, m, c):
+    from cpkrylov_tpu_torch.precond import cuda_interleave as ci
+
+    z = torch.as_tensor(np.random.default_rng(n + c).standard_normal(
+        n + m)).to(device=cuda, dtype=dtype)
+    before = (ci.LAUNCHES, ci.INV_LAUNCHES)
+    w = ci.interleave(z, n, m, c)
+    back = ci.uninterleave(w, n, m, c)
+    assert (ci.LAUNCHES, ci.INV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(w, ci.interleave_plain(z, n, m, c))
+    assert torch.equal(back, ci.uninterleave_plain(w, n, m, c))
+    assert torch.equal(back, z)
+
+
+def test_interleave_wrappers_raise_on_bad_operands(cuda):
+    from cpkrylov_tpu_torch.precond.cuda_interleave import (interleave,
+                                                            uninterleave)
+
+    z = torch.ones(25, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        interleave(z.half(), 20, 5, 4)
+    with pytest.raises(ValueError):
+        interleave(z[:24], 20, 5, 4)
+    with pytest.raises(ValueError):
+        uninterleave(torch.ones(50, dtype=torch.float64, device=cuda)[::2],
+                     20, 5, 4)
+    with pytest.raises(ValueError):
+        interleave(z, 20, 5, 5)
+    with pytest.raises(ValueError, match=r"2\*\*31"):       # 32-bit indices
+        interleave(z, 2**31 - 5, 5, 4)
 
 
 @pytest.mark.parametrize("system", ["aug2d_40", "cvxqp3_2000"])

@@ -23,7 +23,7 @@ import cpkrylov_tpu_torch as cpt
 from cpkrylov_tpu.mixed import solve_mixed as jax_solve_mixed
 from cpkrylov_tpu_torch.ops.dia import pack_dia
 from cpkrylov_tpu_torch.precond.df_factor import DFFactorApply
-from cpkrylov_tpu_torch.solvers import common, cpminres
+from cpkrylov_tpu_torch.solvers import common
 from cpkrylov_tpu_torch.utils import fixtures
 from cpkrylov_tpu_torch.utils.profiling import MIXED_SPAN, device_profile
 
@@ -113,7 +113,6 @@ def test_cvxqp1_mixed_matches_jax(monkeypatch):
                               opts=cpk.SolverOptions(**sopts),
                               precond_opts=cpk.PrecondOptions(**BENCH_POPTS))
         monkeypatch.setattr(common, "vdot", _xla_dot)
-        monkeypatch.setattr(cpminres, "vdot", _xla_dot)
         same = cpt.solve_mixed("cpminres", s.b, s.A, s.B, s.C, s.G, M=M,
                                opts=cpt.SolverOptions(**sopts), device="cpu")
     for out in (own, same):

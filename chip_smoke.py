@@ -21,17 +21,21 @@ before its last line:
    scipy's f64 product; the interleave riffle B7 and its inverse B8 at
    n = 1M, m = 250k with c = 1 and c = 4, f32 and f64, bit for bit against
    their plain versions and the explicit permutation, ``torch.index_select``
-   timed beside them), with times from CUDA events (for B7/B8 and
-   ``torch.index_select`` also the device's busy time per call from a
-   profiler trace, ``device_ms``);
+   timed beside them), with times from CUDA events (``ms``) and device
+   times per call from a profiler trace with the inputs rotated past the
+   L2 (``device_ms``, for every kernel and for the library calls beside
+   B1, B5, B7 and B8);
 4. mm setup: the Maros-Meszaros systems AUG2D-L and CVXQP3-L
    (``utils/mm.py``), their host LDL^T and device packing, timed;
 5. mm kernels: the banded triangular solve (B4) with its affine scan (B6)
    on both triangles of AUG2D-L's factor (p = 632, r = 631, nb = 473), f32
    and f64, against their plain versions and scipy's
-   ``spsolve_triangular``; the CSR SpMV (B5) on AUG2D-L's K_P and
-   CVXQP3-L's A, f32 and f64, bit for bit against its plain version and
-   against scipy; ``torch.sparse.mm`` timed beside B5 and B1;
+   ``spsolve_triangular``, with B4's split into its c and scan kernels,
+   the bytes it moves, the scan's launch layout, and the scan's read floor
+   (the same cluster and per-step slices with no chain between the
+   steps); the CSR SpMV (B5) on AUG2D-L's K_P and CVXQP3-L's A, f32 and
+   f64, bit for bit against its plain version and against scipy, with its
+   bound at both shapes; ``torch.sparse.mm`` timed beside B5 and B1;
 6. golden: CPMINRES on the shipped ``cvxqp1_m`` fixture in f64 on the card,
    53 +- 2 iterations and rel-err < 5e-6 against scipy ``spsolve``;
 7. golden_mixed: ``solve_mixed`` on ``cvxqp1_m`` with f32 inner solves to
@@ -74,9 +78,9 @@ the device's busy time and idle share inside the solve span of each trace
 ``cpkrylov.mixed_loop``), and writes the main paths' traces (``profile_main.json``,
 ``profile_mixed.json``) and every run's per-op table (``.txt``) into DIR.
 
-Then a JSON line of per-kernel results (time, plain version's time, the
-bound from this run's shapes, the library call's time where one exists,
-launches per path), the card line from ``nvidia-smi``, and as the last line
+Then a JSON line of per-kernel results (time and device time, plain
+version's time, the bound from this run's shapes, the library call's time
+and device time where one exists, launches per path), the card line from ``nvidia-smi``, and as the last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
@@ -273,9 +277,16 @@ def phase_kernels(sysm, device, results):
                 dia["bound_ms"], dia["bound_by"] = bound_ms(
                     8 * (d.ndiag * mat.shape[0] + mat.shape[1]
                          + mat.shape[0]), 2 * mat.nnz, tname)
+                # the diagonals (56 MB) and two x exceed the L2 together
+                xs2 = [(x,), (torch.randn_like(x),)]
+                dia["device_ms"] = device_ms(lambda v: dia_spmv(d, v), xs2)
+                dia["library_device_ms"] = device_ms(
+                    lambda v: torch.sparse.mm(sa, v[:, None]), xs2)
                 print(f"kernel dia_spmv bound_ms={dia['bound_ms']:.4f} "
                       f"({dia['bound_by']}) library_ms(torch.sparse.mm)="
-                      f"{dia['library_ms']:.4f}", flush=True)
+                      f"{dia['library_ms']:.4f} device_ms="
+                      f"{dia['device_ms']:.4f} library_device_ms="
+                      f"{dia['library_device_ms']:.4f}", flush=True)
 
     scan = results["bidiag_scan"]
     for n in (1_250_000, 1_000_003):
@@ -325,6 +336,14 @@ def phase_kernels(sysm, device, results):
                     # a, invd and b read, x written; 3 operations a row
                     scan["bound_ms"], scan["bound_by"] = bound_ms(
                         4 * 8 * n, 3 * n, tname)
+                    # two operand sets (80 MB) exceed the L2 together
+                    sets = [(ta, ti, tb), (ta.flip(0), ti.flip(0),
+                                           tb.flip(0))]
+                    scan["device_ms"] = device_ms(
+                        lambda a_, i_, b_: bidiag_scan(a_, i_, b_, reverse),
+                        sets)
+                    print(f"kernel bidiag_scan device_ms="
+                          f"{scan['device_ms']:.4f}", flush=True)
 
     dfd = results["df_dia_spmv"]
     for label, mat in (("A", sysm.A), ("B", sysm.B), ("Bt", sysm.B.T.tocsr())):
@@ -363,34 +382,69 @@ def phase_kernels(sysm, device, results):
             dfd["bound_ms"], dfd["bound_by"] = bound_ms(
                 2 * 4 * (d.ndiag * mat.shape[0] + mat.shape[1]
                          + mat.shape[0]), 30 * mat.nnz, "float32")
+            # the (hi, lo) diagonals (56 MB) and two x pairs exceed the L2
+            dfd["device_ms"] = device_ms(
+                lambda h, lo: df_dia_spmv(d, h, lo),
+                [(xh, xl), (xl, xh)])
+            print(f"kernel df_dia_spmv device_ms={dfd['device_ms']:.4f}",
+                  flush=True)
 
     phase_riffle(sysm.n, sysm.m, device, results)
 
 
-def device_ms(fn, operands, iters: int = 48) -> float:
-    """Device milliseconds per call of ``fn(*operands[i % len])``: the
-    device's busy time (kernels, copies, memsets) over ``iters`` calls in one
-    ``torch.profiler`` trace, over ``iters``.  Back-to-back CUDA-event timing
-    of a kernel of a few microseconds measures the host's launch rate
-    instead (the Python wrapper and ``ctypes``).  The operand sets rotate so
-    that together they exceed the 50 MB L2, as for a caller whose input was
-    not just written."""
+def traced_kernels(fn, operands, iters: int) -> dict:
+    """{device operation's name: (mean ms of its traced launches, launches
+    in the trace)} over ``iters`` calls of ``fn(*operands[i % len])`` in one
+    ``torch.profiler`` trace, after one untimed call per operand set."""
     import torch
-
-    from cpkrylov_tpu_torch.utils.profiling import device_profile
-
-    span = "chip_smoke.device_ms"
-
-    def loop():
-        with torch.profiler.record_function(span):
-            for i in range(iters):
-                fn(*operands[i % len(operands)])
-            torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
 
     for ops in operands:
         fn(*ops)
     torch.cuda.synchronize()
-    return device_profile(loop, span=span).busy_ms / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*operands[i % len(operands)])
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA") or evt.count == 0:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        out[evt.key] = (us / 1e3 / evt.count, evt.count)
+    return out
+
+
+def device_ms(fn, operands, iters: int = 48) -> float:
+    """Device milliseconds per call of ``fn(*operands[i % len])``: for each
+    kernel, copy or memset it launches, the mean duration of its launches in
+    a profiler trace times its launches per call, summed.  Back-to-back
+    CUDA-event timing of a kernel of a few microseconds measures the host's
+    launch rate instead (the Python wrapper and ``ctypes``).  The operand
+    sets rotate so that together they exceed the 50 MB L2, as for a caller
+    whose input was not just written.  A trace may hold fewer launches than
+    were made (on the H100, traces taken late in this script kept 4 to 9 of
+    12 launches of the ms-long B4/B6 kernels, whose recorded durations match
+    their event times): the mean over the launches it holds stands for
+    all, and a line says what was missing."""
+    total = 0.0
+    for name, (mean, count) in traced_kernels(fn, operands, iters).items():
+        per_call = max(1, round(count / iters))
+        if count != per_call * iters:
+            print(f"device_ms: the trace kept {count} of {per_call * iters} "
+                  f"launches of {name[:60]}", flush=True)
+        total += mean * per_call
+    return total
+
+
+def device_ms_by_kernel(fn, operands, iters: int = 12) -> dict:
+    """Device milliseconds per launch of each kernel that ``fn`` launches,
+    by the kernel's name (``traced_kernels``)."""
+    return {name: mean for name, (mean, _) in
+            traced_kernels(fn, operands, iters).items()}
 
 
 def phase_riffle(n, m, device, results):
@@ -400,8 +454,8 @@ def phase_riffle(n, m, device, results):
     is the one library call computing the same function.  ``ms``,
     ``plain_ms`` and ``library_ms`` are CUDA-event times, as for every
     kernel (host overhead included: what a solve pays per call);
-    ``device_ms`` and ``library_device_ms`` are the device's busy time per
-    call from a profiler trace."""
+    ``device_ms`` and ``library_device_ms`` are device times per call from
+    a profiler trace (``device_ms``)."""
     import numpy as np
     import torch
 
@@ -524,7 +578,9 @@ def phase_mm_kernels(mm, device, results):
     from cpkrylov_tpu_torch.precond.cuda_tri import (affine_scan,
                                                      affine_scan_plain,
                                                      band_tri_solve,
-                                                     band_tri_solve_plain)
+                                                     band_tri_solve_plain,
+                                                     scan_layout,
+                                                     scan_read_floor)
     from cpkrylov_tpu_torch.precond.trisolve import ReducedScanTriFactor
     from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
 
@@ -567,13 +623,32 @@ def phase_mm_kernels(mm, device, results):
                               warmup=3)
             pms = cuda_time_ms(lambda: band_tri_solve_plain(tf, bd),
                                iters=3, warmup=1)
+            # inv and W (GB) exceed the L2 by far: one operand set
+            dms = device_ms(lambda v: band_tri_solve(tf, v), [(bd,)],
+                            iters=12)
+            split = device_ms_by_kernel(lambda v: band_tri_solve(tf, v),
+                                        [(bd,)])
+            c_ms = sum(t for k, t in split.items() if "band_c_kernel" in k)
+            s_ms = sum(t for k, t in split.items()
+                       if "affine_scan_kernel" in k)
             p, r, nb = tf.panel, tf.r, tf.nblocks
+            lay = scan_layout(p, r, dtype)
+            item = tf.inv_diag.element_size()
+            # what this design moves: inv and W once, b read, c written
+            # into x and read back by the scan, x written
+            moved = item * (nb * p * p + nb * p * r + tf.n + 3 * nb * p)
+            mats = item * (nb * p * p + nb * p * r)
             print(f"kernel band_tri {tname} {label} n={tf.n} panel={p} r={r}"
                   f" nb={nb} rel_err_vs_plain={err_plain:.3e} "
                   f"rel_err_vs_scipy_f64={err_ref:.3e} "
                   f"max_abs_err_vs_plain={err_abs:.3e} "
                   f"max_abs_x={np.max(np.abs(ref[label])):.3e} ms={ms:.4f} "
-                  f"plain_ms={pms:.4f}", flush=True)
+                  f"plain_ms={pms:.4f} device_ms={dms:.4f} "
+                  f"c_kernel_device_ms={c_ms:.4f} "
+                  f"scan_kernel_device_ms={s_ms:.4f} scan_layout={lay} "
+                  f"bytes_moved={moved} bytes_inv_and_W={mats} "
+                  f"bound_bytes={item * (nb * p * p + nb * p * r + 2 * tf.n)}"
+                  f" W_reads_per_solve=1", flush=True)
             for what, e in (("plain", err_plain), ("scipy", err_ref)):
                 if not e <= BAND_TOL[tname]:
                     raise RuntimeError(f"band_tri {tname} {label}: error vs "
@@ -598,16 +673,38 @@ def phase_mm_kernels(mm, device, results):
                                warmup=3)
             spms = cuda_time_ms(lambda: affine_scan_plain(mr, cr), iters=3,
                                 warmup=1)
+            sdms = device_ms(affine_scan, [(mr, cr)], iters=12)
+            # the read floor: the same cluster, blocks and per-step slices
+            # of W's tail rows, no chain between the steps; and the same
+            # at B4's scan (all p rows of W, c in x)
+            fl = scan_read_floor(mr, cr, r)
+            torch.cuda.synchronize()
+            if not torch.equal(fl, cr):
+                raise RuntimeError(f"scan_read_floor {tname} {label}: "
+                                   "differs from c")
+            fms = cuda_time_ms(lambda: scan_read_floor(mr, cr, r), iters=20,
+                               warmup=3)
+            fdms = device_ms(lambda m_, c_: scan_read_floor(m_, c_, r),
+                             [(mr, cr)], iters=12)
+            wfull = tf.w_blocks.permute(1, 2, 0)
+            fbdms = device_ms(lambda m_, c_: scan_read_floor(m_, c_, r),
+                              [(wfull, c.T)], iters=12)
             print(f"kernel affine_scan {tname} {label} r={r} nb={nb} "
                   f"rel_err_vs_plain={serr:.3e} max_abs_err={serr_abs:.3e} "
-                  f"ms={sms:.4f} plain_ms={spms:.4f}", flush=True)
+                  f"ms={sms:.4f} plain_ms={spms:.4f} device_ms={sdms:.4f} "
+                  f"read_floor_ms={fms:.4f} read_floor_device_ms={fdms:.4f} "
+                  f"read_floor_b4_scan_device_ms={fbdms:.4f} "
+                  f"read_floor_GBps={nb * r * r * item / fdms / 1e6:.1f} "
+                  f"scan_layout={scan_layout(r, r, dtype)} "
+                  f"W_tail_GB={nb * r * r * item / 1e9:.4f}", flush=True)
             if not serr <= BAND_TOL[tname]:
                 raise RuntimeError(f"affine_scan {tname} {label}: error vs "
                                    f"plain {serr:.3e} > {BAND_TOL[tname]}")
             if dtype == torch.float64:
                 scan["max_abs_err"] = max(scan["max_abs_err"], serr_abs)
             if label == "L" and dtype == torch.float64:
-                tri["ms"], tri["plain_ms"] = ms, pms
+                tri["ms"], tri["plain_ms"], tri["device_ms"] = ms, pms, dms
+                scan["device_ms"] = sdms
                 tri["bound_ms"], tri["bound_by"] = bound_ms(
                     8 * (nb * p * p + nb * p * r + 2 * tf.n),
                     2 * nb * (p * p + p * r + r * r), tname)
@@ -618,7 +715,7 @@ def phase_mm_kernels(mm, device, results):
                       f"({tri['bound_by']}) affine_scan bound_ms="
                       f"{scan['bound_ms']:.4f} ({scan['bound_by']})",
                       flush=True)
-            del c, mr, cr, sk, sp_, bd
+            del c, mr, cr, sk, sp_, bd, fl, wfull
             if dtype == torch.float32:
                 del tf
             torch.cuda.empty_cache()
@@ -656,14 +753,28 @@ def phase_mm_kernels(mm, device, results):
             if not err_ref <= CSR_SCIPY_TOL[tname]:
                 raise RuntimeError(f"csr_spmv {tname} {label}: error vs "
                                    f"scipy {err_ref:.3e}")
-            if label.startswith("K_P") and dtype == torch.float64:
+            if dtype == torch.float64:
                 nrows, ncols = mat.shape
-                csr["ms"], csr["plain_ms"], csr["library_ms"] = ms, pms, lms
-                csr["bound_ms"], csr["bound_by"] = bound_ms(
+                bms, by = bound_ms(
                     12 * c.nnz + 8 * (nrows + 1) + 8 * (ncols + nrows),
                     2 * c.nnz, tname)
-                print(f"kernel csr_spmv bound_ms={csr['bound_ms']:.4f} "
-                      f"({csr['bound_by']})", flush=True)
+                # copies of the matrix, so that the operand sets exceed the
+                # L2 together (AUG2D-L's K_P is 20 MB, CVXQP3-L's A 1 MB)
+                copies = max(2, -(-60_000_000 // (12 * c.nnz + 8 * nrows)))
+                sets = [(csr_from_scipy(mat, dtype, device),
+                         torch_sparse_csr(mat, dtype, device),
+                         torch.randn_like(x)) for _ in range(copies)]
+                dms = device_ms(lambda c_, s_, v: csr_spmv(c_, v), sets)
+                ldms = device_ms(lambda c_, s_, v: torch.sparse.mm(
+                    s_, v[:, None]), sets)
+                print(f"kernel csr_spmv {tname} {label} bound_ms={bms:.4f} "
+                      f"({by}) device_ms={dms:.4f} library_device_ms="
+                      f"{ldms:.4f} operand_sets={copies}", flush=True)
+                if label.startswith("K_P"):
+                    csr.update(ms=ms, plain_ms=pms, library_ms=lms,
+                               bound_ms=bms, bound_by=by, device_ms=dms,
+                               library_device_ms=ldms)
+                del sets
             del c, sa
 
 

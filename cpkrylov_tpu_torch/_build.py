@@ -61,18 +61,23 @@ _KERNEL_SIGNATURES = {
     # stream
     "cpkt_df_dia_spmv_f32": (_P, _P, _P, _I32, _I64, _I64, _P, _P, _P, _P,
                              _P),
-    # B4's phases: inv, b, c (nb*p), n, p, nb, stream; then
-    # w, c, s (nb*r from the scan), x, n, p, r, nb, stream
+    # B4's first phase: inv, b, c (nb*p), n, p, nb, stream
     "cpkt_band_c_f32": (_P, _P, _P, _I64, _I32, _I64, _P),
     "cpkt_band_c_f64": (_P, _P, _P, _I64, _I32, _I64, _P),
-    "cpkt_band_x_f32": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _P),
-    "cpkt_band_x_f64": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _P),
-    # m and its (row, col, step) strides, alpha, c and its (row, step)
-    # strides, s and its (row, step) strides, r, nb, stream
-    "cpkt_affine_scan_f32": (_P, _I64, _I64, _I64, _F64, _P, _I64, _I64, _P,
-                             _I64, _I64, _I32, _I64, _P),
-    "cpkt_affine_scan_f64": (_P, _I64, _I64, _I64, _F64, _P, _I64, _I64, _P,
-                             _I64, _I64, _I32, _I64, _P),
+    # B6 (and its read floor): m (unit column stride) and its (row, step)
+    # strides, alpha, c and its (row, step) strides, y and its (row, step)
+    # strides, q, r, nb, stream
+    "cpkt_affine_scan_f32": (_P, _I64, _I64, _F64, _P, _I64, _I64, _P, _I64,
+                             _I64, _I32, _I32, _I64, _P),
+    "cpkt_affine_scan_f64": (_P, _I64, _I64, _F64, _P, _I64, _I64, _P, _I64,
+                             _I64, _I32, _I32, _I64, _P),
+    "cpkt_scan_read_floor_f32": (_P, _I64, _I64, _F64, _P, _I64, _I64, _P,
+                                 _I64, _I64, _I32, _I32, _I64, _P),
+    "cpkt_scan_read_floor_f64": (_P, _I64, _I64, _F64, _P, _I64, _I64, _P,
+                                 _I64, _I64, _I32, _I32, _I64, _P),
+    # q, r, out (5 ints: cluster, rows a block, rows a warp, warps, bytes)
+    "cpkt_scan_layout_f32": (_I32, _I32, _P),
+    "cpkt_scan_layout_f64": (_I32, _I32, _P),
     # indptr (int64), indices (int32), data, nrows, x, y, stream
     "cpkt_csr_spmv_f32": (_P, _P, _P, _I64, _P, _P, _P),
     "cpkt_csr_spmv_f64": (_P, _P, _P, _I64, _P, _P, _P),

@@ -20,7 +20,12 @@ subdiagonals of N(0, 0.3^2)).
 * B6's plain version against the Pallas scan kernel in interpret mode
   (f32, two chunks, atol/rtol 2e-4 as in tests/test_pallas_tri.py) and
   ``affine_lane_scan_reference`` (f64, <= 1e-12);
-* ``utils/convert.reduced_scan_from`` round-trips both JAX factor kinds.
+* ``utils/convert.reduced_scan_from`` round-trips both JAX factor kinds;
+* the identity B4's scan rests on, x_i[p-r:] = s_i (the scan's states, so
+  the scan may write x's tail entries itself and W is read once): for the
+  port's plain version and scipy in f64 (<= 1e-12), and for the JAX
+  package's ``pallas_tri_solve(..., interpret=True)`` on the same packed
+  factor (f32 only, so the f32 bound 1e-5).
 """
 import functools
 
@@ -207,3 +212,51 @@ def test_cpu_dispatch_counts_no_launch_and_checks_length():
     with pytest.raises(ValueError, match="rhs has shape"):
         band_tri_solve(tf, b[:-1])
     assert build_reduced_scan_tri(T, torch.float64, "cpu", panel=3) is None
+
+
+def _scan_states(tf, b):
+    """s (nb, r) from the plain scan alone on the factor's tail rows:
+    s_i = -W_i[p-r:] s_{i-1} + c_i[p-r:], in f64."""
+    p, r, nb = tf.panel, tf.r, tf.nblocks
+    b_pad = torch.zeros(nb * p, dtype=torch.float64)
+    b_pad[: tf.n] = torch.as_tensor(np.asarray(b, np.float64))
+    inv, w = tf.inv_diag.double(), tf.w_blocks.double()
+    c = torch.bmm(inv, b_pad.view(nb, p, 1)).view(nb, p)
+    return affine_scan_plain((-w[:, p - r:, :]).permute(1, 2, 0),
+                             c[:, p - r:].T).T.numpy()
+
+
+def _tails(x, tf):
+    """x's last r entries of every panel, and the mask of those inside n
+    (the last panel's padding is not part of x)."""
+    p, r, nb = tf.panel, tf.r, tf.nblocks
+    xp = np.zeros(nb * p)
+    xp[: tf.n] = np.asarray(x, np.float64)
+    inside = (np.arange(nb * p) < tf.n).reshape(nb, p)[:, p - r:]
+    return xp.reshape(nb, p)[:, p - r:], inside
+
+
+@pytest.mark.parametrize("n,reach,panel", [(2048, 5, 16), (2000, 7, 24),
+                                           (1500, 16, 16)])
+def test_tail_of_x_is_the_scan_state_f64(n, reach, panel):
+    T = _banded_lower(n, reach, seed=n + reach)
+    b = np.random.default_rng(3).standard_normal(n)
+    tf = build_reduced_scan_tri(T, torch.float64, "cpu", panel=panel)
+    s = _scan_states(tf, b)
+    x64 = spla.spsolve_triangular(T, b, lower=True)
+    for x in (band_tri_solve_plain(tf, torch.as_tensor(b)).numpy(), x64):
+        tails, inside = _tails(x, tf)
+        assert _rel(tails[inside], s[inside]) <= TOL[np.float64]
+
+
+@pytest.mark.parametrize("n,reach,panel,chunk", [(2048, 5, 16, 64),
+                                                  (1000, 7, 24, 16)])
+def test_tail_of_pallas_x_is_the_scan_state(n, reach, panel, chunk):
+    T = _banded_lower(n, reach, seed=reach + 1)
+    b = np.random.default_rng(4).standard_normal(n).astype(np.float32)
+    jtf = build_pallas_tri(T, panel=panel, chunk=chunk)
+    x = np.asarray(pallas_tri_solve(jtf, jnp.asarray(b), interpret=True))
+    tf = reduced_scan_from(jtf, dtype=torch.float32, device="cpu")
+    tails, inside = _tails(x, tf)
+    s = _scan_states(tf, b)
+    assert _rel(tails[inside], s[inside]) <= TOL[np.float32]

@@ -279,10 +279,16 @@ def _rel2(x, ref):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+# the scan forms every row of x_i (head rows too) and writes it into x in
+# place: more than 32 head rows (88), p = r, one panel (n <= p), n not a
+# multiple of p, and r below the cluster's 16 blocks
 @pytest.mark.parametrize("n,reach,panel", [(2048, 5, 16), (2000, 7, 24),
                                            (30_011, 79, 80),
                                            (20_000, 631, 632),
-                                           (6_000, 1024, 1024)])
+                                           (6_000, 1024, 1024),
+                                           (4096, 40, 128), (1500, 16, 16),
+                                           (500, 7, 512), (10_001, 100, 104),
+                                           (3000, 3, 8)])
 def test_band_tri_kernel_matches_plain_and_scipy(cuda, dtype, n, reach,
                                                  panel):
     from cpkrylov_tpu_torch.precond import cuda_tri
@@ -305,7 +311,8 @@ def test_band_tri_kernel_matches_plain_and_scipy(cuda, dtype, n, reach,
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("r,nb", [(1, 5), (8, 1000), (100, 77), (1024, 9)])
+@pytest.mark.parametrize("r,nb", [(1, 5), (8, 1000), (100, 77), (1024, 9),
+                                  (37, 50), (631, 40), (17, 300)])
 def test_affine_scan_kernel_matches_plain(cuda, dtype, r, nb):
     from cpkrylov_tpu_torch.precond import cuda_tri
 
@@ -322,6 +329,43 @@ def test_affine_scan_kernel_matches_plain(cuda, dtype, r, nb):
         torch.cuda.synchronize()
         assert s.shape == (r, nb)
         assert _rel2(s, ref) <= BAND_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scan_read_floor_reads_the_scan_slices(cuda, dtype):
+    """The chain-free read of B6's slices (the floor chip_smoke.py times)
+    leaves the state zero, so it returns c exactly, and counts no launch."""
+    from cpkrylov_tpu_torch.precond import cuda_tri
+
+    rng = np.random.default_rng(12)
+    q, r, nb = 40, 37, 60
+    m = torch.as_tensor(rng.standard_normal((nb, q, r))).to(
+        device=cuda, dtype=dtype).permute(1, 2, 0)
+    c = torch.as_tensor(rng.standard_normal((q, nb))).to(device=cuda,
+                                                          dtype=dtype)
+    before = cuda_tri.SCAN_LAUNCHES
+    y = cuda_tri.scan_read_floor(m, c, r)
+    torch.cuda.synchronize()
+    assert cuda_tri.SCAN_LAUNCHES == before
+    assert torch.equal(y, c)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("q,r", [(632, 631), (1024, 1024), (8, 3)])
+def test_scan_layout_fits_one_block_per_sm(cuda, dtype, q, r):
+    """The layout covers every row with at most 32 warps, each warp's ring
+    holds at least two rows, and the rings and the double-buffered state
+    fit the 227 KB a block may use."""
+    from cpkrylov_tpu_torch.precond import cuda_tri
+
+    lay = cuda_tri.scan_layout(q, r, dtype)
+    item = torch.empty((), dtype=dtype).element_size()
+    assert lay["cluster"] == 16
+    assert lay["rows_per_block"] * lay["cluster"] >= q
+    assert lay["warps"] * lay["rows_per_warp"] >= lay["rows_per_block"]
+    assert 1 <= lay["warps"] <= 32
+    assert lay["ring_bytes"] >= lay["warps"] * 2 * r * item
+    assert lay["ring_bytes"] + 2 * 1024 * item <= 232_448 - 2048
 
 
 def _csr_cases():

@@ -15,8 +15,11 @@ before its last line:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (DIA SpMV on A, K_P and B of the 1M x 250k banded
    system in f32 and f64; the bidiagonal scan forward and reverse at
-   n = 1.25M and at an n that is not a multiple of the scan tile, also held
-   against scipy in f64; the df64 DIA SpMV on A, B and B' of the same
+   n = 1.25M and at an n that is not a multiple of the scan tile, bit for
+   bit against its plain version and a repeated call, and against scipy,
+   with its launches a call and its read floor (the same loads and stores
+   without the look-back), and bit for bit at the tests' ragged sizes; the
+   df64 DIA SpMV on A, B and B' of the same
    system, bit for bit against its plain version and to 1e-12 against
    scipy's f64 product; the interleave riffle B7 and its inverse B8 at
    n = 1M, m = 250k with c = 1 and c = 4, f32 and f64, bit for bit against
@@ -96,9 +99,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Tolerances (relative).  DIA SpMV: the kernel rounds each multiply and add
 # in the plain version's order, so it is expected to agree bit for bit; the
-# bound leaves room for one rounding per term.  Bidiagonal scan: held both
-# against scipy's sequential f64 substitution and against its plain version
-# (a Hillis-Steele scan, which associates the products differently).
+# bound leaves room for one rounding per term.  Bidiagonal scan: equal bit
+# for bit to its plain version (which performs the kernel's multiplies and
+# adds in the kernel's order) and to a repeated call; held to these bounds
+# against scipy's sequential f64 substitution.
 DIA_TOL = {"float32": 1e-6, "float64": 1e-14}
 SCAN_TOL = {"float32": 1e-5, "float64": 1e-12}
 # df64 DIA SpMV: every step of the error-free chain is rounded explicitly in
@@ -238,7 +242,10 @@ def phase_kernels(sysm, device, results):
                                              pack_df_dia)
     from cpkrylov_tpu_torch.ops.dia import dia_matvec, pack_dia
     from cpkrylov_tpu_torch.precond.cp import assemble_kp
-    from cpkrylov_tpu_torch.precond.cuda_bidiag import (bidiag_scan,
+    from cpkrylov_tpu_torch.precond import cuda_bidiag
+    from cpkrylov_tpu_torch.precond.cuda_bidiag import (TILE,
+                                                         bidiag_read_floor,
+                                                         bidiag_scan,
                                                          bidiag_scan_plain)
     from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
 
@@ -308,12 +315,15 @@ def phase_kernels(sysm, device, results):
                     return torch.as_tensor(v).to(device=device, dtype=dtype)
 
                 ta, ti, tb = dev(a), dev(1.0 / dd), dev(b)
+                before = cuda_bidiag.LAUNCHES
                 xk = bidiag_scan(ta, ti, tb, reverse)
+                per_call = cuda_bidiag.LAUNCHES - before
+                xk2 = bidiag_scan(ta, ti, tb, reverse)
                 xp = bidiag_scan_plain(ta, ti, tb, reverse)
                 torch.cuda.synchronize()
                 xk64 = xk.double().cpu().numpy()
                 err = float(np.linalg.norm(xk64 - x64) / np.linalg.norm(x64))
-                err_plain = rel_max(xk, xp)
+                exact = torch.equal(xk, xp) and torch.equal(xk, xk2)
                 scan["max_abs_err"] = max(
                     scan["max_abs_err"], float(torch.max(torch.abs(xk - xp))))
                 ms = cuda_time_ms(lambda: bidiag_scan(ta, ti, tb, reverse))
@@ -323,27 +333,79 @@ def phase_kernels(sysm, device, results):
                 print(f"kernel bidiag_scan {tname} n={n} "
                       f"{'reverse' if reverse else 'forward'} "
                       f"rel_err_vs_scipy={err:.3e} "
-                      f"max_rel_diff_vs_plain={err_plain:.3e} "
+                      f"equal_to_plain_and_repeat={exact} "
+                      f"launches_per_call={per_call} "
                       f"ms={ms:.4f} plain_ms={pms:.4f}", flush=True)
-                for what, e in (("scipy", err), ("plain", err_plain)):
-                    if not e <= SCAN_TOL[tname]:
-                        raise RuntimeError(
-                            f"bidiag_scan {tname} n={n} reverse={reverse}: "
-                            f"error vs {what} {e:.3e} > {SCAN_TOL[tname]}")
-                if (n == 1_250_000 and not reverse
-                        and dtype == torch.float64):
+                if not exact:
+                    raise RuntimeError(
+                        f"bidiag_scan {tname} n={n} reverse={reverse}: "
+                        "differs from its plain version or between calls")
+                if not err <= SCAN_TOL[tname]:
+                    raise RuntimeError(
+                        f"bidiag_scan {tname} n={n} reverse={reverse}: "
+                        f"error vs scipy {err:.3e} > {SCAN_TOL[tname]}")
+                if per_call != 1:
+                    raise RuntimeError(f"bidiag_scan: {per_call} counted "
+                                       "launches a call")
+                if n != 1_250_000 or dtype != torch.float64:
+                    continue
+                # two operand sets (80 MB) exceed the L2 together
+                sets = [(ta, ti, tb), (ta.flip(0), ti.flip(0), tb.flip(0))]
+
+                def call(a_, i_, b_, reverse=reverse):
+                    return bidiag_scan(a_, i_, b_, reverse)
+
+                def floor(a_, i_, b_, reverse=reverse):
+                    return bidiag_read_floor(a_, i_, b_, reverse)
+
+                traced = traced_kernels(call, sets, 48)
+                kernels_per_call = sum(c for _, c in traced.values()) / 48
+                dms = device_ms(call, sets)
+                fl = floor(ta, ti, tb)
+                torch.cuda.synchronize()
+                if not torch.equal(fl[:TILE] if not reverse else
+                                   fl[-TILE:], xk[:TILE] if not reverse
+                                   else xk[-TILE:]):
+                    raise RuntimeError("bidiag_read_floor: its first tile "
+                                       "differs from the scan's")
+                fms = cuda_time_ms(lambda: floor(ta, ti, tb))
+                fdms = device_ms(floor, sets)
+                print(f"kernel bidiag_scan {tname} n={n} "
+                      f"{'reverse' if reverse else 'forward'} "
+                      f"device_ms={dms:.4f} read_floor_ms={fms:.4f} "
+                      f"read_floor_device_ms={fdms:.4f} "
+                      f"device_ops_per_call={kernels_per_call:.2f} "
+                      f"traced={[(k[:48], c) for k, (_, c) in traced.items()]}",
+                      flush=True)
+                # one kernel a call, nothing else: a trace may keep fewer
+                # records than launches (device_ms), never more
+                if not (len(traced) == 1 and kernels_per_call <= 1
+                        and "bidiag_scan_kernel" in next(iter(traced))):
+                    raise RuntimeError(f"bidiag_scan: a call ran {traced}")
+                if not reverse:
                     scan["ms"], scan["plain_ms"] = ms, pms
                     # a, invd and b read, x written; 3 operations a row
                     scan["bound_ms"], scan["bound_by"] = bound_ms(
                         4 * 8 * n, 3 * n, tname)
-                    # two operand sets (80 MB) exceed the L2 together
-                    sets = [(ta, ti, tb), (ta.flip(0), ti.flip(0),
-                                           tb.flip(0))]
-                    scan["device_ms"] = device_ms(
-                        lambda a_, i_, b_: bidiag_scan(a_, i_, b_, reverse),
-                        sets)
-                    print(f"kernel bidiag_scan device_ms="
-                          f"{scan['device_ms']:.4f}", flush=True)
+                    scan.update(device_ms=dms, read_floor_ms=fms,
+                                read_floor_device_ms=fdms,
+                                launches_per_call=per_call)
+    # the ragged sizes of the tests: one partial tile, exact tiles, above
+    # 32 and above 256 tiles (two aggregates a look-back thread)
+    for n in (1, 2, TILE - 1, TILE, TILE + 1, 3 * TILE + 5, 33 * TILE + 1,
+              257 * TILE + 3):
+        for dtype in (torch.float32, torch.float64):
+            ops = [torch.as_tensor(v).to(device=device, dtype=dtype) for v in
+                   (0.4 * rng.standard_normal(n), 1.0 + rng.random(n),
+                    rng.standard_normal(n))]
+            for reverse in (False, True):
+                if not torch.equal(bidiag_scan(*ops, reverse),
+                                   bidiag_scan_plain(*ops, reverse)):
+                    raise RuntimeError(f"bidiag_scan n={n} {dtype} "
+                                       f"reverse={reverse}: differs from "
+                                       "its plain version")
+    print("kernel bidiag_scan ragged sizes: equal to the plain version "
+          "(f32, f64, both directions)", flush=True)
 
     dfd = results["df_dia_spmv"]
     for label, mat in (("A", sysm.A), ("B", sysm.B), ("Bt", sysm.B.T.tocsr())):
@@ -1348,8 +1410,9 @@ def run_phases(device, profile_dir=None) -> list:
             raise RuntimeError(f"{name} missing on a banded path: {counts}")
         kernels.append({k: entry[k] for k in (
             "name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "device_ms", "library_device_ms")
+            "launches_by_path", "launches_per_call", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+            "library_device_ms", "read_floor_ms", "read_floor_device_ms")
             if k in entry})
     return kernels
 

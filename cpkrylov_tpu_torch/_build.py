@@ -52,10 +52,15 @@ _KERNEL_SIGNATURES = {
     # data, offsets (int64, device), ndiag, nrows, ncols, x, y, stream
     "cpkt_dia_spmv_f32": (_P, _P, _I32, _I64, _I64, _P, _P, _P),
     "cpkt_dia_spmv_f64": (_P, _P, _I32, _I64, _I64, _P, _P, _P),
-    # a, invd, b, x, agg (2*nblocks), carry (nblocks), n, reverse, stream
-    "cpkt_bidiag_scan_f32": (_P, _P, _P, _P, _P, _P, _I64, _I32, _P),
-    "cpkt_bidiag_scan_f64": (_P, _P, _P, _P, _P, _P, _I64, _I32, _P),
-    # elements per scan tile (sizes the scratch)
+    # a, invd, b, x, state (the stream's self-resetting words), n,
+    # reverse, stream
+    "cpkt_bidiag_scan_f32": (_P, _P, _P, _P, _P, _I64, _I32, _P),
+    "cpkt_bidiag_scan_f64": (_P, _P, _P, _P, _P, _I64, _I32, _P),
+    # B2's loads and stores without its look-back: a, invd, b, x, n,
+    # reverse, stream
+    "cpkt_bidiag_read_floor_f32": (_P, _P, _P, _P, _I64, _I32, _P),
+    "cpkt_bidiag_read_floor_f64": (_P, _P, _P, _P, _I64, _I32, _P),
+    # scan positions per tile
     "cpkt_bidiag_tile": (),
     # hi, lo, offsets (int64, device), ndiag, nrows, ncols, xh, xl, yh, yl,
     # stream

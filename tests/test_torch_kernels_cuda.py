@@ -9,8 +9,10 @@ JAX is not installed:
 
 Tolerances: the DIA kernel rounds every multiply and add in the plain
 version's order, so it must agree bit for bit (f32 1e-6, f64 1e-14 stated
-relative bounds); the bidiagonal scan is held against scipy's sequential
-f64 substitution (f32 1e-5, f64 1e-12 relative 2-norm).  The df64 DIA
+relative bounds); the bidiagonal scan rounds every multiply and add in its
+plain version's order, so it must equal it bit for bit (also across
+repeated calls, streams and CUDA-graph replays), and it is held against
+scipy's sequential f64 substitution (f32 1e-5, f64 1e-12 relative 2-norm).  The df64 DIA
 kernel rounds every step of its error-free chain explicitly, so it must
 equal its plain version exactly (hi and lo), and hi + lo must agree with
 scipy's f64 product to 1e-12 relative.  The banded solve (B4) and its
@@ -98,6 +100,143 @@ def test_bidiag_kernel_matches_scipy(cuda, dtype, reverse, n):
     err = (np.linalg.norm(x.double().cpu().numpy() - x_ref)
            / np.linalg.norm(x_ref))
     assert err <= SCAN_TOL[dtype], err
+
+
+def _scan_operands(n, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    dd = 1.0 + rng.random(n)
+    return tuple(torch.as_tensor(v).to(device=device, dtype=dtype) for v in (
+        0.4 * rng.standard_normal(n) / dd, 1.0 / dd, rng.standard_normal(n)))
+
+
+# the ragged sizes of tests/test_torch_bidiag.py (TILE = 2048): one partial
+# tile, exact tiles, above 32 and above 256 tiles; and the main path's n
+SCAN_SIZES = [1, 2, 2047, 2048, 2049, 3 * 2048 + 5, 33 * 2048 + 1,
+              257 * 2048 + 3, 1_000_003, 1_250_000]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n", SCAN_SIZES)
+def test_bidiag_kernel_equals_plain_bitwise(cuda, dtype, reverse, n):
+    """The kernel rounds every multiply and add in the plain version's
+    order: exact."""
+    from cpkrylov_tpu_torch.precond import cuda_bidiag
+
+    a, invd, b = _scan_operands(n, n, dtype, cuda)
+    x = cuda_bidiag.bidiag_scan(a, invd, b, reverse)
+    ref = cuda_bidiag.bidiag_scan_plain(a, invd, b, reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(x, ref)
+
+
+def test_bidiag_tile_is_the_python_constant(cuda):
+    from cpkrylov_tpu_torch import _build
+    from cpkrylov_tpu_torch.precond import cuda_bidiag
+
+    assert _build.kernel_library().cpkt_bidiag_tile() == cuda_bidiag.TILE
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bidiag_kernel_repeats_its_bits(cuda, dtype):
+    """20 back-to-back calls on one stream give identical bits."""
+    from cpkrylov_tpu_torch.precond import cuda_bidiag
+
+    a, invd, b = _scan_operands(1_250_000, 3, dtype, cuda)
+    xs = [cuda_bidiag.bidiag_scan(a, invd, b, False) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, xs[0]) for x in xs[1:])
+
+
+def test_bidiag_kernel_bits_across_sizes_and_streams(cuda):
+    """Calls alternating in n and direction on one stream, and the same
+    calls on two streams at once, all give the plain version's bits."""
+    from cpkrylov_tpu_torch.precond import cuda_bidiag
+
+    cases = [(n, rev) for n in (1_250_000, 4099, 600_001, 1)
+             for rev in (False, True)]
+    ops = {n: _scan_operands(n, n, torch.float64, cuda)
+           for n, _ in cases}
+    ref = {(n, rev): cuda_bidiag.bidiag_scan_plain(*ops[n], rev)
+           for n, rev in cases}
+    for _ in range(3):
+        for n, rev in cases:
+            assert torch.equal(cuda_bidiag.bidiag_scan(*ops[n], rev),
+                               ref[(n, rev)])
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(3):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                for n, rev in cases[i::2] + cases[1 - i::2]:
+                    outs[i].append(((n, rev),
+                                    cuda_bidiag.bidiag_scan(*ops[n], rev)))
+    torch.cuda.synchronize()
+    for out in outs:
+        for key, x in out:
+            assert torch.equal(x, ref[key]), key
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bidiag_kernel_replays_in_a_cuda_graph(cuda, dtype):
+    """A call captured in a CUDA graph and replayed 5 times gives the plain
+    version's bits each replay: the kernel's state resets itself."""
+    from cpkrylov_tpu_torch.precond import cuda_bidiag
+
+    a, invd, b = _scan_operands(1_000_003, 5, dtype, cuda)
+    ref = cuda_bidiag.bidiag_scan_plain(a, invd, b, True)
+    stream = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(stream):    # the state for this stream, first
+        cuda_bidiag.bidiag_scan(a, invd, b, True)
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        x = cuda_bidiag.bidiag_scan(a, invd, b, True)
+    for _ in range(5):
+        x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(x, ref)
+
+
+def test_bidiag_state_survives_the_tag_wrap(cuda):
+    """Calls across the wrap of the 32-bit tag (the epoch pushed to just
+    below it) give the plain version's bits: the wrapping call clears the
+    records, so none left from an earlier call is taken as ready."""
+    from cpkrylov_tpu_torch.precond import cuda_bidiag
+
+    a, invd, b = _scan_operands(600_001, 4, torch.float64, cuda)
+    ref = cuda_bidiag.bidiag_scan_plain(a, invd, b, False)
+    stream = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(stream):
+        cuda_bidiag.bidiag_scan(a, invd, b, False)
+        state = cuda_bidiag._STATES[(cuda.index, stream.cuda_stream)]
+        state[0] = 2**32 - 4
+        for _ in range(6):
+            x = cuda_bidiag.bidiag_scan(a, invd, b, False)
+            stream.synchronize()
+            assert torch.equal(x, ref)
+    assert int(state[0]) == 2**32 + 3      # one tag skipped at the wrap
+
+
+def test_bidiag_call_is_one_kernel_and_no_memset(cuda):
+    """One call shows in a profiler trace as one kernel launch, with no
+    memset and no copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpkrylov_tpu_torch.precond import cuda_bidiag
+
+    a, invd, b = _scan_operands(1_250_000, 9, torch.float64, cuda)
+    cuda_bidiag.bidiag_scan(a, invd, b, False)       # state made, built
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cuda_bidiag.bidiag_scan(a, invd, b, False)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if str(e.device_type).endswith("CUDA")]
+    names = [e.name for e in ops]
+    assert len(ops) == 1 and "bidiag_scan_kernel" in names[0], names
 
 
 def test_wrappers_raise_on_bad_operands(cuda):

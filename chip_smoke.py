@@ -71,7 +71,27 @@ before its last line:
 12. golden_solvers: ``tests/test_golden.py`` on the card in f64 (cvxqp1_m
    with the Lanczos family and CPDQGMRES at mem 2 and 50, cvxqp2_s with
    CPGMRES(100), CPGMRES(20) and CPDQGMRES(100)): its golden counts and
-   error bounds against scipy ``spsolve``.
+   error bounds against scipy ``spsolve``;
+13. dist_banded: the main path's system and options as two gloo ranks
+   (``cpkrylov_tpu_torch.parallel``, spawned processes) that share the
+   card: ``dist_solve`` CPMINRES with its default (Schur) factor and with
+   the replicated one, and ``dist_cpminres`` (replicated factor, halo A and
+   C products) on the b2 = 0 system; each held to the serial card count
+   12 +- 1, a host f64 true residual <= 1e-6 |b| and x within 1e-6 of the
+   serial card solution, and each rank to B2 and B1 or B5 launched (B7/B8
+   under the replicated factor), with setup and solve seconds and each
+   rank's peak device memory.  At two ranks the main system's Schur plan
+   has no interface (its x-y chain lies in rank 0's chunk), so the same
+   ranks also solve the system at the same sizes with a banded G and a
+   slope-matched B (``schur_sharded``): a Schur plan with s > 0 and a
+   sharded exchange, applied on the slices with no global K_P; held to
+   that system's serial card count +- 1 and the same residual and x
+   bounds, and each rank to B4, B6 and B5 (the A_dS products) launched;
+14. dist_mixed: ``dist_solve_mixed`` on the same ranks and system (f32
+   inner solves on the slices, the f64 true residual on the host) to
+   1e-6 |b|;
+15. dist_nccl1: one NCCL rank on the card, ``dist_solve`` CPMINRES, device
+   tensors straight to the collectives, held as in 13.
 
 With ``--profile DIR`` it then profiles one more warm solve of each main
 path, of both Maros-Meszaros systems and of the five further solvers on
@@ -1339,6 +1359,418 @@ def phase_golden_solvers(device):
     return total
 
 
+# The distributed phases: the main path's system as DIST_RANKS gloo ranks
+# that share the card (NCCL refuses two ranks on one GPU), then one NCCL
+# rank.  Each rank holds the serial card count, 12 +- 1 (BANDED_ITERS), a
+# host f64 true residual <= 1e-6 |b|, and x within DIST_X_TOL of the serial
+# x (relative 2-norm; the factors are exact, so only rounding differs).
+DIST_RANKS = 2
+DIST_X_TOL = 1e-6
+# The kernels every rank must launch, by factor: one of each group.
+_SPMV = ("dia_spmv", "csr_spmv")
+NEED_SCHUR = (("bidiag_scan",), _SPMV)
+NEED_REPLICATED = NEED_SCHUR + (("interleave",), ("uninterleave",))
+NEED_SHARDED = (("band_tri",), ("affine_scan",), ("csr_spmv",))
+# The system of ``schur_sharded``: the main path's sizes with a banded G
+# and a slope-matched B, whose Schur plan has an interface at two ranks.
+SHARDED_SYS = dict(bandwidth=3, g_mode="banded", b_mode="slope")
+
+
+def _peak_gib(device) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) / 2 ** 30
+
+
+def _dist_solves_rank(comm, n, m):
+    """One gloo rank of ``dist_banded`` and ``dist_mixed``: dist_solve
+    CPMINRES with the Schur and with the replicated factor,
+    dist_cpminres (replicated factor) on the b2 = 0 system, dist_solve
+    CPMINRES with the sharded Schur factor on the ``SHARDED_SYS`` system,
+    and dist_solve_mixed, at the main path's settings.  Per solve: setup
+    and solve seconds, the count, the launches of this rank (counters
+    reset just before the solve, read just after), the peak device memory
+    from its setup on and the collectives; rank 0 adds the solutions."""
+    import numpy as np
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.parallel import (dist_cpminres, dist_solve,
+                                             dist_solve_mixed,
+                                             partition_blocks, plan_dist,
+                                             plan_halo_block, shard_vector,
+                                             unshard_vector)
+    from cpkrylov_tpu_torch.parallel.mixed import build_dist_precond
+    from cpkrylov_tpu_torch.parallel.schur import SchurFactor
+    from cpkrylov_tpu_torch.utils.fixtures import banded_saddle_system
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    dev = comm.device
+    sysm = banded_saddle_system(n, m, bandwidth=3, with_oracle=False)
+    popts = cpt.PrecondOptions(residual_update=True, nitref=1,
+                               force_itref=True)
+    opts = cpt.SolverOptions(atol=0.0, rtol=1e-6, itmax=200)
+    f64 = torch.float64
+    out = {}
+
+    def clock():
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    def solve_run(key, setup_s, fn, extra, cold=True):
+        """A cold run first (unless ``cold`` is False), then the one
+        that is counted and timed."""
+        cold_s = None
+        if cold:
+            t0 = clock()
+            fn()
+            cold_s = clock() - t0
+        calls0 = dict(comm.calls)
+        reset_launches()
+        t0 = clock()
+        iters, x = fn()
+        solve_s = clock() - t0
+        out[key] = dict(setup_s=setup_s, solve_s=solve_s, cold_s=cold_s,
+                        iters=iters,
+                        launches=launch_counts(),
+                        peak_gib=_peak_gib(dev),
+                        calls={k: v - calls0[k]
+                               for k, v in comm.calls.items()},
+                        x=x if comm.rank == 0 else None, **extra)
+
+    def both(x1, x2):
+        return torch.cat([x1, x2]).cpu().numpy()
+
+    def fresh_peak():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    fresh_peak()
+    # the Schur factor (dist_solve's default) and its partition plan
+    t0 = clock()
+    Ms = build_dist_precond(sysm.G, sysm.B, sysm.C, comm,
+                            precond_opts=popts, dtype=f64)
+    f = Ms.factor
+    plan = plan_dist(sysm.A, sysm.B, sysm.C, comm, dtype=f64,
+                     G=sysm.G if getattr(f, "has_shard_plan", False)
+                     else None)
+    setup_s = clock() - t0
+    if not isinstance(f, SchurFactor):
+        raise RuntimeError(f"dist_banded: the default factor is "
+                           f"{type(f).__name__}, not the Schur factor")
+
+    def run_schur():
+        res, x1, x2 = dist_solve(comm, "cpminres", sysm.b, sysm.A, sysm.B,
+                                 sysm.C, sysm.G, opts=opts, M=Ms, plan=plan)
+        return res.niters, both(x1, x2)
+
+    solve_run("schur", setup_s, run_schur, dict(
+        s=f.s, sharded=f.has_shard_plan,
+        form=type(f.local_factor.tf1).__name__,
+        blocks={k: f"{type(v).__name__}:{type(v.mat).__name__}"
+                for k, v in plan.blocks.items()}))
+    del Ms, plan, f
+
+    # the replicated factor
+    fresh_peak()
+    t0 = clock()
+    Mr = cpt.make_preconditioner(sysm.G, sysm.B, sysm.C, options=popts,
+                                 dtype=f64, device=dev)
+    plan_r = plan_dist(sysm.A, sysm.B, sysm.C, comm, dtype=f64)
+    setup_s = clock() - t0
+
+    def run_rep():
+        res, x1, x2 = dist_solve(comm, "cpminres", sysm.b, sysm.A, sysm.B,
+                                 sysm.C, sysm.G, opts=opts, M=Mr,
+                                 plan=plan_r)
+        return res.niters, both(x1, x2)
+
+    solve_run("rep", setup_s, run_rep,
+              dict(form=type(Mr.factor.tf1).__name__))
+    del plan_r
+
+    # the hand-fused CPMINRES on the b2 = 0 system, halo A and C products
+    t0 = clock()
+    blocks = partition_blocks(sysm.A, sysm.B, sysm.C, comm, dtype=f64)
+    ha = plan_halo_block(sysm.A, comm, blocks.n_loc, blocks.n_loc)
+    hc = plan_halo_block(sysm.C, comm, blocks.m_loc, blocks.m_loc)
+    setup_s = clock() - t0
+
+    def run_cpminres():
+        b_loc = shard_vector(sysm.b[:n], comm, blocks.n_loc, f64)
+        xl, yl, k, _, _ = dist_cpminres(comm, blocks, Mr, b_loc, opts,
+                                        halo_a=ha, halo_c=hc)
+        return k, both(unshard_vector(xl, n, comm),
+                       unshard_vector(yl, m, comm))
+
+    solve_run("dist_cpminres", setup_s, run_cpminres, {})
+    del Mr, blocks, ha, hc
+
+    # the Schur factor with an interface and a sharded exchange, on the
+    # SHARDED_SYS system: applied on the slices, no global K_P
+    sysb = banded_saddle_system(n, m, with_oracle=False, **SHARDED_SYS)
+    fresh_peak()
+    t0 = clock()
+    Mb = build_dist_precond(sysb.G, sysb.B, sysb.C, comm,
+                            precond_opts=popts, dtype=f64)
+    fb = Mb.factor
+    plan_b = plan_dist(sysb.A, sysb.B, sysb.C, comm, dtype=f64, G=sysb.G)
+    setup_s = clock() - t0
+    if not (isinstance(fb, SchurFactor) and fb.s > 0 and fb.has_shard_plan
+            and Mb.kp is None):
+        raise RuntimeError(
+            f"dist_banded schur_sharded: factor {type(fb).__name__}, s = "
+            f"{getattr(fb, 's', None)}, exchange "
+            f"{getattr(fb, 'has_shard_plan', None)}, K_P kept "
+            f"{Mb.kp is not None}")
+
+    def run_sharded():
+        res, x1, x2 = dist_solve(comm, "cpminres", sysb.b, sysb.A, sysb.B,
+                                 sysb.C, sysb.G, opts=opts, M=Mb,
+                                 plan=plan_b)
+        return res.niters, both(x1, x2)
+
+    # one run: its scans take ~0.1 s a trisolve (nb = 78,125 panels)
+    solve_run("schur_sharded", setup_s, run_sharded, dict(
+        s=fb.s, sharded=fb.has_shard_plan,
+        form=type(fb.local_factor.tf1).__name__,
+        panel=getattr(fb.local_factor.tf1, "panel", None),
+        r=getattr(fb.local_factor.tf1, "r", None),
+        blocks={k: f"{type(v).__name__}:{type(v.mat).__name__}"
+                for k, v in plan_b.blocks.items()}), cold=False)
+    del Mb, plan_b, fb, sysb
+
+    # dist_mixed: f32 inner solves on the same ranks, f64 host outer loop
+    fresh_peak()
+    mixed = {}
+
+    def run_mixed():
+        mo = dist_solve_mixed(comm, "cpminres", sysm.b, sysm.A, sysm.B,
+                              sysm.C, sysm.G,
+                              opts=cpt.SolverOptions(**MIXED_SOLVER),
+                              precond_opts=popts,
+                              inner_stagwin=MIXED_INNER_STAGWIN)
+        mixed.update(solved=mo.solved, nouter=mo.nouter,
+                     inner=list(mo.inner_niters), ptime_s=mo.ptime)
+        return mo.niters, np.asarray(mo.x)
+
+    # one run: every call of dist_solve_mixed builds its f32 factor anew
+    solve_run("mixed", 0.0, run_mixed, mixed, cold=False)
+    return out
+
+
+def _dist_nccl_rank(comm, n, m):
+    """The one NCCL rank of ``dist_nccl1``: dist_solve CPMINRES with its
+    default preconditioner (the replicated factor on one rank), device
+    tensors straight to the collectives."""
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.parallel import dist_solve, plan_dist
+    from cpkrylov_tpu_torch.utils.fixtures import banded_saddle_system
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    dev = comm.device
+    sysm = banded_saddle_system(n, m, bandwidth=3, with_oracle=False)
+    popts = cpt.PrecondOptions(residual_update=True, nitref=1,
+                               force_itref=True)
+    opts = cpt.SolverOptions(atol=0.0, rtol=1e-6, itmax=200)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    M = cpt.make_preconditioner(sysm.G, sysm.B, sysm.C, options=popts,
+                                dtype=torch.float64, device=dev)
+    plan = plan_dist(sysm.A, sysm.B, sysm.C, comm, dtype=torch.float64)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+
+    def run():
+        t0 = time.perf_counter()
+        out = dist_solve(comm, "cpminres", sysm.b, sysm.A, sysm.B, sysm.C,
+                         sysm.G, opts=opts, M=M, plan=plan)
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    _, cold_s = run()     # the first collectives set up NCCL's communicator
+    reset_launches()
+    calls0 = dict(comm.calls)
+    (res, x1, x2), solve_s = run()
+    return {"nccl": dict(
+        setup_s=setup_s, solve_s=solve_s, cold_s=cold_s,
+        iters=res.niters, launches=launch_counts(), peak_gib=_peak_gib(dev),
+        calls={k: v - calls0[k] for k, v in comm.calls.items()},
+        backend=comm.backend,
+        x=torch.cat([x1, x2]).cpu().numpy())}
+
+
+def _check_dist(phase, key, ranks, ref_x, ref_iters, b, K, card, need):
+    """Print one distributed solve's line and hold it to the serial card
+    run; returns the launches summed over the ranks."""
+    import numpy as np
+
+    r0 = ranks[0][key]
+    x = r0["x"]
+    true_rel = float(np.linalg.norm(b - K @ x) / np.linalg.norm(b))
+    rel_x = rel_2norm(x, ref_x)
+    per_rank = [r[key] for r in ranks]
+    extra = {k: v for k, v in r0.items()
+             if k not in ("x", "launches", "calls", "setup_s", "solve_s",
+                          "cold_s", "iters", "peak_gib")}
+    print(f"{phase} {key} ranks={len(ranks)} n={K.shape[0]} "
+          f"iters={r0['iters']} (serial {ref_iters}) "
+          f"setup_s={[round(p['setup_s'], 3) for p in per_rank]} "
+          f"solve_s={[round(p['solve_s'], 4) for p in per_rank]} "
+          f"cold_solve_s={[_round(p['cold_s'], 4) for p in per_rank]} "
+          f"true_rel_resid={true_rel:.4e} rel_x_vs_serial={rel_x:.3e} "
+          f"peak_gib={[round(p['peak_gib'], 3) for p in per_rank]} "
+          f"collectives={[p['calls'] for p in per_rank]} "
+          f"launches={[p['launches'] for p in per_rank]} {extra} "
+          f"card=\"{card}\"", flush=True)
+    if any(p["iters"] != r0["iters"] for p in per_rank):
+        raise RuntimeError(f"{phase} {key}: the ranks' counts differ")
+    if abs(r0["iters"] - ref_iters) > BANDED_ITERS[1]:
+        raise RuntimeError(f"{phase} {key}: {r0['iters']} iterations, the "
+                           f"serial card run takes {ref_iters}")
+    if not (np.all(np.isfinite(x)) and x.shape == ref_x.shape):
+        raise RuntimeError(f"{phase} {key}: solution not finite or wrong "
+                           "shape")
+    if not true_rel <= 1e-6:
+        raise RuntimeError(f"{phase} {key}: true residual {true_rel:.3e}")
+    if not rel_x <= DIST_X_TOL:
+        raise RuntimeError(f"{phase} {key}: x off the serial x by "
+                           f"{rel_x:.3e}")
+    return _rank_launches(f"{phase} {key}", per_rank, need)
+
+
+def _round(x, digits):
+    return None if x is None else round(x, digits)
+
+
+def _rank_launches(what, per_rank, need):
+    """Every rank launched, for each group of kernels in ``need``, at least
+    one of them; returns the launches summed over the ranks."""
+    total = {}
+    for p in per_rank:
+        la = p["launches"]
+        missing = [g for g in need if not any(la[k] for k in g)]
+        if missing:
+            raise RuntimeError(f"{what}: a rank launched none of "
+                               f"{missing}: {la}")
+        for k, v in la.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_dist(sysm, M, device):
+    """``dist_banded`` and ``dist_mixed`` on DIST_RANKS gloo ranks sharing
+    the card, then ``dist_nccl1`` on one NCCL rank; held to serial card
+    solves with the main path's factor ``M``.  Returns the launches of
+    each phase summed over its ranks."""
+    import numpy as np
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.parallel.dryrun import run_ranks
+    from cpkrylov_tpu_torch.utils import fixtures
+
+    card = nvidia_smi_card()
+    n, m = sysm.n, sysm.m
+    popts = cpt.PrecondOptions(residual_update=True, nitref=1,
+                               force_itref=True)
+    opts = cpt.SolverOptions(atol=0.0, rtol=1e-6, itmax=200)
+    b0 = np.concatenate([sysm.b[:n], np.zeros(m)])
+    ref = {}
+    for key, rhs in (("b", sysm.b), ("b0", b0)):
+        out = cpt.solve("cpminres", rhs, sysm.A, sysm.B, sysm.C, sysm.G,
+                        device=device, dtype=torch.float64, opts=opts,
+                        precond_opts=popts, M=M)
+        ref[key] = (out.x.cpu().numpy(), out.niters)
+    # the serial card solve of schur_sharded's system
+    sysb = fixtures.banded_saddle_system(n, m, **SHARDED_SYS)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    Mb = cpt.make_preconditioner(sysb.G, sysb.B, sysb.C, options=popts,
+                                 dtype=torch.float64, device=device)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    out = cpt.solve("cpminres", sysb.b, sysb.A, sysb.B, sysb.C, sysb.G,
+                    device=device, dtype=torch.float64, opts=opts,
+                    precond_opts=popts, M=Mb)
+    torch.cuda.synchronize(device)
+    ref["bs"] = (out.x.cpu().numpy(), out.niters)
+    print(f"dist_banded serial schur_sharded system g_mode=banded "
+          f"b_mode=slope iters={out.niters} setup_s={t1 - t0:.3f} "
+          f"solve_s={time.perf_counter() - t1:.4f} "
+          f"form={type(Mb.factor.tf1).__name__} "
+          f"panel={getattr(Mb.factor.tf1, 'panel', None)} "
+          f"r={getattr(Mb.factor.tf1, 'r', None)} card=\"{card}\"",
+          flush=True)
+    del Mb, out
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(_dist_solves_rank, DIST_RANKS, n, m, backend="gloo",
+                      device=device)
+    print(f"dist_banded ranks={DIST_RANKS} backend=gloo device={device} "
+          f"wall_s={time.perf_counter() - t0:.2f} (spawn, system, setups, "
+          "solves)", flush=True)
+    launches = {"dist_banded": {}}
+    for key, s_, rhs, rk, need in (
+            ("schur", sysm, sysm.b, "b", NEED_SCHUR),
+            ("rep", sysm, sysm.b, "b", NEED_REPLICATED),
+            ("dist_cpminres", sysm, b0, "b0", NEED_REPLICATED),
+            ("schur_sharded", sysb, sysb.b, "bs", NEED_SHARDED)):
+        la = _check_dist("dist_banded", key, ranks, *ref[rk], rhs, s_.K,
+                         card, need)
+        for k, v in la.items():
+            launches["dist_banded"][k] = launches["dist_banded"].get(k, 0) \
+                + v
+    mixed = ranks[0]["mixed"]
+    if not mixed["solved"]:
+        raise RuntimeError(f"dist_mixed not solved: {mixed}")
+    launches["dist_mixed"] = _check_dist_mixed(ranks, sysm, card)
+
+    t0 = time.perf_counter()
+    nccl = run_ranks(_dist_nccl_rank, 1, n, m, backend="nccl",
+                     device=device)
+    print(f"dist_nccl1 ranks=1 backend=nccl device={device} "
+          f"wall_s={time.perf_counter() - t0:.2f}", flush=True)
+    r = nccl[0]["nccl"]
+    if r["backend"] != "nccl" or r["calls"]["allreduce"] == 0:
+        raise RuntimeError(f"dist_nccl1: no NCCL collective ran: {r}")
+    launches["dist_nccl1"] = _check_dist("dist_nccl1", "nccl", nccl,
+                                         *ref["b"], sysm.b, sysm.K, card,
+                                         NEED_REPLICATED)
+    return launches
+
+
+def _check_dist_mixed(ranks, sysm, card):
+    """dist_mixed to the f64 contract (true residual <= 1e-6 |b|); returns
+    its launches summed over the ranks."""
+    import numpy as np
+
+    per_rank = [r["mixed"] for r in ranks]
+    r0 = per_rank[0]
+    x = r0["x"]
+    true_rel = float(np.linalg.norm(sysm.b - sysm.K @ x)
+                     / np.linalg.norm(sysm.b))
+    print(f"dist_mixed cpminres f32-inner f64-outer ranks={len(ranks)} "
+          f"n={sysm.n} m={sysm.m} solved={r0['solved']} "
+          f"nouter={r0['nouter']} inner={r0['inner']} "
+          f"niters={r0['iters']} "
+          f"ptime_s={[round(p['ptime_s'], 3) for p in per_rank]} "
+          f"stime_s={[round(p['solve_s'], 4) for p in per_rank]} "
+          f"true_rel_resid={true_rel:.4e} "
+          f"peak_gib={[round(p['peak_gib'], 3) for p in per_rank]} "
+          f"collectives={[p['calls'] for p in per_rank]} "
+          f"launches={[p['launches'] for p in per_rank]} "
+          f"card=\"{card}\"", flush=True)
+    if not (np.all(np.isfinite(x)) and true_rel <= 1e-6):
+        raise RuntimeError(f"dist_mixed: true residual {true_rel:.3e}")
+    return _rank_launches("dist_mixed", per_rank, NEED_SCHUR)
+
+
 def kernel_entry(name: str, source: str, replaces: str) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"cpkrylov_tpu_torch/csrc/{source}",
@@ -1346,7 +1778,7 @@ def kernel_entry(name: str, source: str, replaces: str) -> dict:
 
 
 def run_phases(device, profile_dir=None) -> list:
-    """Phases 3-12 (and the profile when asked); returns the kernels' JSON
+    """Phases 3-15 (and the profile when asked); returns the kernels' JSON
     entries."""
     import torch
 
@@ -1393,6 +1825,7 @@ def run_phases(device, profile_dir=None) -> list:
         msys, _, mM, setup = mm[name]
         by_path[name] = phase_mm_solve(name, msys, mM, setup, device)
     by_path["golden_solvers"] = phase_golden_solvers(device)
+    by_path.update(phase_dist(sysm, M, device))
     if profile_dir:
         phase_profile(sysm, device, M, M32, mm, profile_dir)
 

@@ -114,7 +114,8 @@ class CPPrecond:
     """
 
     factor: FactorApply
-    kp: object            # exact K_P: DIA or CSR
+    kp: object            # exact K_P: DIA or CSR (None on a sharded
+                          # Schur factor: parallel/schur.py)
     n: int
     m: int
     options: PrecondOptions
@@ -132,7 +133,7 @@ class CPPrecond:
 
     def init_state(self, dtype: torch.dtype | None = None) -> CPState:
         dtype = dtype or self.kp.dtype
-        dev = self.factor.dinv.device
+        dev = self.kp.data.device
         return CPState(aty=torch.zeros(self.n, dtype=dtype, device=dev),
                        cy=torch.zeros(self.m, dtype=dtype, device=dev))
 

@@ -8,6 +8,7 @@ stopping quantities to the host once per iteration.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 
 import numpy as np
@@ -103,8 +104,42 @@ def sym_givens(a: torch.Tensor, b: torch.Tensor):
     return c, s, d
 
 
+# ---------------------------------------------------------------------------
+# Vector reductions, pluggable for the row-partitioned solve.
+#
+# Every kernel reduction goes through ``vdot``/``vnorm``/``coupled_dot``.
+# Without a group they are plain local dots; inside ``reduce_group(comm)``
+# each is a local dot all-reduced over the ranks of ``comm``
+# (``parallel/comm.py``), which lets all six kernels run unchanged on
+# row-sharded vectors (the JAX package's ``reduce_axis``).
+# ---------------------------------------------------------------------------
+
+_REDUCE_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "cpkrylov_reduce_group", default=None)
+
+
+class reduce_group:
+    """Context manager: reductions inside become all-reduced local dots
+    over ``comm`` (a ``parallel.comm.Comm``; None leaves them local)."""
+
+    def __init__(self, comm):
+        self.comm = comm
+        self._token = None
+
+    def __enter__(self):
+        self._token = _REDUCE_GROUP.set(self.comm)
+        return self
+
+    def __exit__(self, *exc):
+        _REDUCE_GROUP.reset(self._token)
+        return False
+
+
 def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a, b)
+    """dot(a, b), all-reduced over the active group (if any)."""
+    d = torch.dot(a, b)
+    comm = _REDUCE_GROUP.get()
+    return d if comm is None else comm.allreduce_sum(d)
 
 
 def vnorm(a: torch.Tensor) -> torch.Tensor:
@@ -113,8 +148,12 @@ def vnorm(a: torch.Tensor) -> torch.Tensor:
 
 def coupled_dot(u, v, t, q) -> torch.Tensor:
     """dot(u, v) + dot(t, q), the coupled inner product of every kernel
-    (cpminres.m:189)."""
-    return vdot(u, v) + vdot(t, q)
+    (cpminres.m:189).  Under a group both local dots are added first and
+    all-reduced once."""
+    comm = _REDUCE_GROUP.get()
+    if comm is None:
+        return vdot(u, v) + vdot(t, q)
+    return comm.allreduce_sum(torch.dot(u, v) + torch.dot(t, q))
 
 
 def eps100(dtype: torch.dtype) -> float:

@@ -17,6 +17,7 @@ from ..config import SolverOptions
 from ..precond.cp import CPPrecond, CPState
 from .common import (KrylovResult, STATUS_BREAKDOWN, STATUS_ITMAX,
                      STATUS_SOLVED, STATUS_STAGNATED, apply_manifold_veto,
+                     coupled_dot,
                      history_init, resolve_itmax, resolve_operators,
                      stag_init, stag_stop, stag_update, true_resid, vdot)
 
@@ -65,7 +66,7 @@ def cpcg(b: torch.Tensor, A, C, M: CPPrecond,
         # Curvatures and step (cpcg.m:151-154).
         Ap = A.matvec(p)
         Cq = C.matvec(q)
-        curv = vdot(p, Ap) + vdot(q, Cq)
+        curv = coupled_dot(p, Ap, q, Cq)
         alpha = resid2 / curv
 
         # Updates (cpcg.m:161-171).
@@ -75,7 +76,7 @@ def cpcg(b: torch.Tensor, A, C, M: CPPrecond,
         w_n = w + alpha * Cq
         mstate, r, u, _ = M.apply_nm(mstate, g_n, w_n)
         t = a_n + u
-        resid2_n = vdot(g_n, r) + vdot(t, w_n)
+        resid2_n = coupled_dot(g_n, r, t, w_n)
         beta = resid2_n / resid2
         p_n = -r + beta * p
         q_n = -t + beta * q

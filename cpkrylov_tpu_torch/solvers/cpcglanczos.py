@@ -17,10 +17,10 @@ from ..config import SolverOptions
 from ..precond.cp import CPPrecond, CPState
 from .common import (KrylovResult, STATUS_BACKWARD, STATUS_INDEFINITE,
                      STATUS_ITMAX, STATUS_SOLVED, STATUS_STAGNATED,
-                     apply_manifold_veto, breakdown_resid_recheck, eps100,
-                     history_init, initial_lanczos_pair, resolve_itmax,
-                     resolve_operators, safe_normalize_pair, stag_init,
-                     stag_stop, stag_update, vdot)
+                     apply_manifold_veto, breakdown_resid_recheck,
+                     coupled_dot, eps100, history_init, initial_lanczos_pair,
+                     resolve_itmax, resolve_operators, safe_normalize_pair,
+                     stag_init, stag_stop, stag_update)
 
 
 def cpcglanczos(b: torch.Tensor, A, C, M: CPPrecond,
@@ -78,7 +78,7 @@ def cpcglanczos(b: torch.Tensor, A, C, M: CPPrecond,
         # u/t/alpha then the x,y update (cpcglanczos.m:232-239).
         u = A.matvec(vk_n)
         t = C.matvec(qk_n)
-        alpha = vdot(u, vk_n) + vdot(t, qk_n)
+        alpha = coupled_dot(u, vk_n, t, qk_n)
         dg_n = alpha - low * low * dg                 # d_k
         zeta = eta / dg_n
         x_n = x + zeta * wv
@@ -88,7 +88,7 @@ def cpcglanczos(b: torch.Tensor, A, C, M: CPPrecond,
         mstate, w1, w2, _ = M.apply_nm(mstate, u, -t)
         vkp1_n = w1 - alpha * vk_n - beta * vkm1
         qkp1_n = (qk_n - w2) - alpha * qk_n - beta * qkm1
-        beta2 = vdot(u, vkp1_n) + vdot(t, qkp1_n)
+        beta2 = coupled_dot(u, vkp1_n, t, qkp1_n)
         # relative guard; see common.lanczos_step
         indef = beta2 < -e100 * (1 + torch.abs(alpha))
         beta_n = torch.sqrt(torch.abs(beta2))

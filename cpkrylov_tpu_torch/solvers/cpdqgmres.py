@@ -22,6 +22,7 @@ from ..config import SolverOptions
 from ..precond.cp import CPPrecond, CPState
 from .common import (KrylovResult, STATUS_BREAKDOWN, STATUS_ITMAX,
                      STATUS_SOLVED, STATUS_STAGNATED, apply_manifold_veto,
+                     coupled_dot,
                      history_init, resolve_itmax, resolve_operators,
                      safe_normalize_pair, stag_init, stag_stop, stag_update,
                      sym_givens, true_resid, vdot)
@@ -87,7 +88,7 @@ def cpdqgmres(b: torch.Tensor, A, C, M: CPPrecond,
         h = [zero] * (mem + 1)
         for j in range(max(1, k - mem + 1), k + 1):
             jpos = (j - 1) % (mem + 1)
-            hj = vdot(V[jpos], u) + vdot(Q[jpos], t)
+            hj = coupled_dot(V[jpos], u, Q[jpos], t)
             h[k - j] = hj
             vnew = vnew - hj * V[jpos]
             qnew = qnew - hj * Q[jpos]
@@ -95,7 +96,7 @@ def cpdqgmres(b: torch.Tensor, A, C, M: CPPrecond,
         # Subdiagonal H(k+1,k); a nonpositive coupled inner product (where
         # the reference goes complex, cpdqgmres.m:218-225) is a breakdown:
         # the iteration completes, then the loop exits.
-        dsub = vdot(u, vnew) + vdot(t, qnew)
+        dsub = coupled_dot(u, vnew, t, qnew)
         hsub = torch.sqrt(torch.clamp(dsub, min=0.0))
         V[kp1pos], Q[kp1pos] = safe_normalize_pair(vnew, qnew, hsub)
 

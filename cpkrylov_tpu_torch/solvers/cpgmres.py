@@ -23,7 +23,7 @@ from ..precond.cp import CPPrecond, CPState
 from .common import (KrylovResult, STATUS_BREAKDOWN, STATUS_ITMAX,
                      STATUS_SOLVED, apply_manifold_veto, coupled_dot,
                      history_init, resolve_itmax, resolve_operators,
-                     safe_normalize_pair, sym_givens, true_resid, vdot)
+                     safe_normalize_pair, sym_givens, true_resid)
 
 
 def cpgmres(b: torch.Tensor, A, C, M: CPPrecond,
@@ -96,7 +96,7 @@ def cpgmres(b: torch.Tensor, A, C, M: CPPrecond,
             # (cpgmres.m:214-218).
             h = []
             for j in range(k + 1):
-                hj = vdot(V[j], u) + vdot(Q[j], t)
+                hj = coupled_dot(V[j], u, Q[j], t)
                 h.append(hj)
                 vnew = vnew - hj * V[j]
                 qnew = qnew - hj * Q[j]
@@ -111,7 +111,7 @@ def cpgmres(b: torch.Tensor, A, C, M: CPPrecond,
                 u = kp_im[:n]
                 t = -kp_im[n:]
                 for j in range(k + 1):
-                    hj = vdot(V[j], u) + vdot(Q[j], t)
+                    hj = coupled_dot(V[j], u, Q[j], t)
                     h[j] = h[j] + hj
                     vnew = vnew - hj * V[j]
                     qnew = qnew - hj * Q[j]
@@ -120,7 +120,7 @@ def cpgmres(b: torch.Tensor, A, C, M: CPPrecond,
             # complex, cpgmres.m:219-222).  The step completes with
             # hsub = 0, the sweep ends and the restart's true residual
             # decides whether the solve is done.
-            dsub = vdot(u, vnew) + vdot(t, qnew)
+            dsub = coupled_dot(u, vnew, t, qnew)
             hsub = torch.sqrt(torch.clamp(dsub, min=0.0))
             V[k + 1], Q[k + 1] = safe_normalize_pair(vnew, qnew, hsub)
 

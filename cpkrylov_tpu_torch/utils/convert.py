@@ -138,3 +138,40 @@ def csr_from_numpy(data, indices, indptr, shape, dtype=torch.float64,
                         shape=(int(shape[0]), int(shape[1])))
     return csr_from_scipy(mat, dtype=torch_dtype(dtype),
                           device=resolve_device(device), transpose=transpose)
+
+
+def schur_from_jax(f, rank: int):
+    """One rank's ``parallel.schur.SchurShare`` (host arrays) from the
+    numpy-convertible fields of the JAX package's ``SchurFactor``: its
+    interior permutation, A_dS, the interface and S^-1, and its exchange
+    indices, with the padding that ``shard_map`` needed cut off.  Handing
+    it to ``plan_schur_precond(..., share=)`` gives both packages the same
+    plan, so that a test compares their device sides alone."""
+    import scipy.sparse as sp
+
+    from ..parallel.schur import SchurShare
+
+    N, s = int(f.N), int(f.s)
+    g = np.asarray(f.gather_idx)[rank]
+    n_int = int(np.count_nonzero(g < N))    # the valid entries lead
+    if s:
+        data = np.asarray(f.a_ds_data)[rank][:n_int]
+        cols = np.asarray(f.a_ds_cols)[rank][:n_int]
+        rows = np.repeat(np.arange(n_int), data.shape[1])
+        a_ds = sp.csr_matrix((data.reshape(-1), (rows, cols.reshape(-1))),
+                             shape=(n_int, s))
+        a_ds.eliminate_zeros()
+    else:
+        a_ds = sp.csr_matrix((n_int, 0))
+    exchange = None
+    if getattr(f, "shard_gidx", None) is not None:
+        exchange = dict(
+            gidx=np.asarray(f.shard_gidx)[rank][:n_int].astype(np.int64),
+            ssrc=np.asarray(f.shard_ssrc)[rank].astype(np.int64),
+            ysdst=np.asarray(f.shard_ysdst)[rank].astype(np.int64),
+            hx=int(f.shard_hx), hy=int(f.shard_hy),
+            nloc=int(f.shard_nloc), mloc=int(f.shard_mloc))
+    return SchurShare(interior=g[:n_int].astype(np.int64), a_ds=a_ds,
+                      s_nat=np.asarray(f.s_gather).astype(np.int64),
+                      s_inv=np.asarray(f.s_inv, np.float64),
+                      exchange=exchange)

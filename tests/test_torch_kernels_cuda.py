@@ -650,3 +650,46 @@ def test_mm_path_goes_through_kernels(cuda, system):
     contract = 1e-6 + 1e-6 * np.linalg.norm(s.b)
     limit = 0.12 if system == "aug2d_40" else 1.35
     assert np.linalg.norm(s.b - s.K @ x) <= limit * contract
+
+
+# ---------------------------------------------------------------------------
+# The distributed solve (cpkrylov_tpu_torch.parallel) on the card
+# ---------------------------------------------------------------------------
+
+def _nccl_collectives(comm):
+    """All three collectives of ``Comm`` on CUDA tensors (one NCCL rank)."""
+    x = torch.arange(6, dtype=torch.float64, device=comm.device)
+    total = comm.allreduce_sum(x)
+    full = comm.all_gather_vec(x, 5)
+    left, right = comm.neighbor_exchange(x[:2], x[-2:])
+    return {"devices": {t.device.type for t in (total, full, left, right)},
+            "total": total.cpu().tolist(), "full": full.cpu().tolist(),
+            "edges": (left.cpu().tolist(), right.cpu().tolist()),
+            "calls": dict(comm.calls)}
+
+
+def test_comm_collectives_on_one_nccl_rank(cuda):
+    from cpkrylov_tpu_torch.parallel.dryrun import run_ranks
+
+    out = run_ranks(_nccl_collectives, 1, backend="nccl",
+                    device="cuda:0")[0]
+    assert out["devices"] == {"cuda"}
+    assert out["total"] == list(range(6))
+    assert out["full"] == list(range(5))
+    assert out["edges"] == ([0.0, 0.0], [0.0, 0.0])   # no neighbours
+    assert out["calls"]["allreduce"] == 1 and out["calls"]["all_gather"] == 1
+
+
+def test_dist_dryrun_on_two_gloo_ranks_sharing_the_card(cuda):
+    """dist_cpminres and dist_solve (CPMINRES, CPGMRES, and the Schur
+    factor on the slices of a plan with s > 0) as two gloo ranks on one
+    card: each solved, within +-1 of the serial card count and within 1e-6
+    of its x, and the sharded Schur solve's A_dS products in B5 (the
+    ranks check all of it)."""
+    from cpkrylov_tpu_torch.parallel.dryrun import run_dryrun
+
+    counts = run_dryrun(2, device="cuda:0")
+    assert set(counts) == {"dist_cpminres", "dist_solve_cpminres",
+                           "dist_solve_cpgmres", "dist_solve_schur_sharded"}
+    for dist_k, serial_k in counts.values():
+        assert abs(dist_k - serial_k) <= 1

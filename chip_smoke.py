@@ -93,9 +93,43 @@ before its last line:
 15. dist_nccl1: one NCCL rank on the card, ``dist_solve`` CPMINRES, device
    tensors straight to the collectives, held as in 13.
 
+Between 10 and 11 run the phases of the Maros-Meszaros sweep and the
+auxiliaries (the counters reset before each, their launches listed per
+path):
+
+16. mm_sweep: ``BASELINE.json`` configs[2], the six solvers at the JAX
+   sweep's settings (``benchmarks/bench_mm_sweep.py:73-74, 141-155``) on
+   AUG2D-L (``mm_setup``'s preconditioner), CVXQP1-L and CVXQP3-L, and
+   CPMINRES on CVXQP2-L (all six with ``--full-sweep``); the first call,
+   then the best of two warm calls; each row held to its record in
+   ``benchmarks/MM_SWEEP_L.json`` (``solved``, iterations within
+   max(2, 3 %), the error against scipy's ``spsolve`` within 1.1 x of the
+   record's, exactly itmax iterations where unsolved), with its work-model
+   nnz/s and its B4/B6/B5 launches a solve; before its rows, each system's
+   B4/B6 triangles and B5 operands are held against their plain versions
+   at its own shapes, and a kernel a row launches must have been held;
+17. mm_mixed: ``solve(..., dtype=torch.float32)`` on AUG2D-L and CVXQP3-L
+   (the host outer loop, f32 preconditioners built from ``mm_setup``'s
+   host LDL^T through the build probe and the df64 swap), solved to the
+   f64 contract, within 10 x the f64 record's error, repeated bit for bit
+   by a second run, B4/B6 launched in f32 on AUG2D-L; one direct solve of
+   each f32 preconditioner profiled (the df64 triangle product's launches
+   and idle share);
+18. operator_a: ``BASELINE.json`` configs[3], CVXQP3-L with A given only as
+   a callable (B5 on the card) and two forced refinement steps, within
+   +-1 iteration and 1.1 x the error of the explicit-A solve;
+19. checkpoint: CVXQP3-L's f64 and mixed f32 preconditioners saved,
+   loaded into templates on the card and from the file alone (timed
+   against the f64 build's LDL^T and packing), held bit for bit (direct
+   solve, full solve);
+20. subsystems: ``solve(debug=True)``, ``validate_system``,
+   ``check_finite``, ``matmat`` of AUG2D-L's K_P against B5 column by
+   column, and ``examples/exprog1_torch.py`` run to its end.
+
 With ``--profile DIR`` it then profiles one more warm solve of each main
-path, of both Maros-Meszaros systems and of the five further solvers on
-the banded system under ``torch.profiler``, prints
+path, of both Maros-Meszaros systems, of the five further solvers on
+the banded system and of the new paths of 16-18 under
+``torch.profiler``, prints
 the device's busy time and idle share inside the solve span of each trace
 (``cpkrylov.solve``, and ``cpkrylov.solve_mixed`` with its device loop
 ``cpkrylov.mixed_loop``), and writes the main paths' traces (``profile_main.json``,
@@ -784,19 +818,20 @@ def phase_mm_kernels(mm, device, results):
                                    f"plain {serr:.3e} > {BAND_TOL[tname]}")
             if dtype == torch.float64:
                 scan["max_abs_err"] = max(scan["max_abs_err"], serr_abs)
+            if label == "L":
+                b4 = bound_ms(item * (nb * p * p + nb * p * r + 2 * tf.n),
+                              2 * nb * (p * p + p * r + r * r), tname)
+                b6 = bound_ms(item * (nb * r * r + 2 * nb * r),
+                              2 * nb * r * r, tname)
+                print(f"kernel band_tri {tname} bound_ms={b4[0]:.4f} "
+                      f"({b4[1]}) affine_scan {tname} bound_ms="
+                      f"{b6[0]:.4f} ({b6[1]})", flush=True)
             if label == "L" and dtype == torch.float64:
                 tri["ms"], tri["plain_ms"], tri["device_ms"] = ms, pms, dms
                 scan["device_ms"] = sdms
-                tri["bound_ms"], tri["bound_by"] = bound_ms(
-                    8 * (nb * p * p + nb * p * r + 2 * tf.n),
-                    2 * nb * (p * p + p * r + r * r), tname)
+                tri["bound_ms"], tri["bound_by"] = b4
                 scan["ms"], scan["plain_ms"] = sms, spms
-                scan["bound_ms"], scan["bound_by"] = bound_ms(
-                    8 * (nb * r * r + 2 * nb * r), 2 * nb * r * r, tname)
-                print(f"kernel band_tri bound_ms={tri['bound_ms']:.4f} "
-                      f"({tri['bound_by']}) affine_scan bound_ms="
-                      f"{scan['bound_ms']:.4f} ({scan['bound_by']})",
-                      flush=True)
+                scan["bound_ms"], scan["bound_by"] = b6
             del c, mr, cr, sk, sp_, bd, fl, wfull
             if dtype == torch.float32:
                 del tf
@@ -860,11 +895,51 @@ def phase_mm_kernels(mm, device, results):
             del c, sa
 
 
+# scipy spsolve solutions of the Maros-Meszaros systems (the error
+# oracle), by system name: each is computed once a run, in worker
+# processes started with the phases (``start_oracles``), while the card
+# runs the earlier phases
+_ORACLES = {}
+ORACLE_SYSTEMS = ("cvxqp3_l", "cvxqp1_l", "cvxqp2_l", "aug2d_l")
+
+
+def _oracle_job(name):
+    """(x, seconds) of scipy's ``spsolve`` of one Maros-Meszaros system,
+    generated here from its definition (a worker process)."""
+    import scipy.sparse.linalg as spla
+
+    sysm = _mm_system(name)
+    t0 = time.perf_counter()
+    x = spla.spsolve(sysm.K.tocsc(), sysm.b)
+    return x, time.perf_counter() - t0
+
+
+def start_oracles():
+    """Start the spsolve oracles in two spawned worker processes; returns
+    the pool (shut down by the caller)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    for name in ORACLE_SYSTEMS:
+        _ORACLES[name] = pool.submit(_oracle_job, name)
+    return pool
+
+
+def oracle(name):
+    """(x, seconds) of scipy's ``spsolve`` of the system ``name``, from the
+    worker ``start_oracles`` gave it."""
+    got = _ORACLES[name]
+    if not isinstance(got, tuple):
+        got = _ORACLES[name] = got.result()
+    return got
+
+
 def phase_mm_solve(name, sysm, M, setup, device):
     """CPMINRES in f64 on one Maros-Meszaros system at the sweep's
     settings, the kernels' counters reset just before the solve."""
     import numpy as np
-    import scipy.sparse.linalg as spla
     import torch
 
     import cpkrylov_tpu_torch as cpt
@@ -883,10 +958,8 @@ def phase_mm_solve(name, sysm, M, setup, device):
     bnorm = float(np.linalg.norm(sysm.b))
     rnorm = float(np.linalg.norm(sysm.b - sysm.K @ x))
     contract = MM_SOLVER["atol"] + MM_SOLVER["rtol"] * bnorm
-    t0 = time.perf_counter()
-    x_direct = spla.spsolve(sysm.K.tocsc(), sysm.b)
-    direct_s = time.perf_counter() - t0
-    oracle = rel_2norm(x, x_direct)
+    x_direct, direct_s = oracle(name)
+    err = rel_2norm(x, x_direct)
     hist = out.resid_history
     f = M.factor
     print(f"{name} cpminres f64 n={sysm.n} m={sysm.m} solved={out.solved} "
@@ -895,7 +968,7 @@ def phase_mm_solve(name, sysm, M, setup, device):
           f"contract(atol+rtol*|b|)={contract:.4e} "
           f"contract_met={rnorm <= contract} "
           f"true_resid_over_contract={rnorm / contract:.4f} "
-          f"err_vs_spsolve={oracle:.4e} (JAX record "
+          f"err_vs_spsolve={err:.4e} (JAX record "
           f"{MM_RECORD[name][2]:.4e}, spsolve_s={direct_s:.2f}) "
           f"precond_resid={hist[-1]:.4e}/{hist[0]:.4e} "
           f"tf={type(f.tf1).__name__}(panel={f.tf1.panel}) "
@@ -932,8 +1005,8 @@ def phase_mm_solve(name, sysm, M, setup, device):
     elif not all(isinstance(t, BlockTriFactor) for t in (f.tf1, f.tf2)):
         raise RuntimeError("cvxqp3_l: the factor is not blocked "
                            "substitution, as in the JAX package")
-    if not oracle <= MM_ORACLE_SLACK * oracle_record:
-        raise RuntimeError(f"{name}: error against spsolve {oracle:.4e}, the "
+    if not err <= MM_ORACLE_SLACK * oracle_record:
+        raise RuntimeError(f"{name}: error against spsolve {err:.4e}, the "
                            f"JAX record is {oracle_record:.4e}")
     if not rnorm <= MM_TRUE_RESID[name] * contract:
         raise RuntimeError(f"{name}: true residual {rnorm:.4e} > "
@@ -1771,14 +1844,707 @@ def _check_dist_mixed(ranks, sysm, card):
     return _rank_launches("dist_mixed", per_rank, NEED_SCHUR)
 
 
+# ---------------------------------------------------------------------------
+# Maros-Meszaros sweep, mixed f32, operator-only A, checkpoint, subsystems
+# ---------------------------------------------------------------------------
+
+# The JAX sweep's settings (benchmarks/bench_mm_sweep.py:73-74, 141-155):
+# all six solvers, atol = rtol = 1e-6, itmax 1000, restart = mem = 50,
+# ``make_preconditioner`` defaults, f64; the first call, then the best of
+# two warm calls.  Each row is held to its record in MM_SWEEP_L.json (the
+# JAX package on a CPU): the same ``solved`` flag, iterations within
+# max(2, 3 % of the record), the error against spsolve within 1.1 x the
+# record where solved, and exactly itmax iterations with a non-solved
+# status where not.
+SWEEP_RECORDS = os.path.join("benchmarks", "MM_SWEEP_L.json")
+SWEEP_SOLVER = dict(atol=1e-6, rtol=1e-6, itmax=1000, restart=50, mem=50)
+SWEEP_SOLVERS = ("cpcg", "cpcglanczos", "cpminres", "cpsymmlq", "cpgmres",
+                 "cpdqgmres")
+SWEEP_ITERS = (2, 0.03)
+# (record name, system name, solvers of the default run); --full-sweep
+# runs all six on every system
+SWEEP_PROBLEMS = (("aug2d_316", "aug2d_l", SWEEP_SOLVERS),
+                  ("cvxqp1_10000", "cvxqp1_l", SWEEP_SOLVERS),
+                  ("cvxqp2_10000", "cvxqp2_l", ("cpminres",)),
+                  ("cvxqp3_10000", "cvxqp3_l", SWEEP_SOLVERS))
+# mm_mixed: the f32 solve is held to 10 x the f64 JAX record's error
+# against spsolve (MM_RECORD): f32 counts follow the rounding, and
+# MM_SWEEP_M_F32.json is a TPU record at cvxqp*_1000, not these sizes.
+MIXED_MM_SLACK = 10.0
+# operator_a: CVXQP3-L with A as a callable, GHN and two forced
+# refinement steps (BASELINE.json configs[3]), against the explicit A
+OPERATOR_A_POPTS = dict(residual_update=True, nitref=2, force_itref=True)
+
+
+def _mm_system(name):
+    from cpkrylov_tpu_torch.utils.mm import aug_kkt, cvxqp_kkt
+
+    if name == "aug2d_l":
+        return aug_kkt("2d", "l")
+    return cvxqp_kkt(name[:-2], "l")
+
+
+def _sweep_check(rec, solver, out, err):
+    import numpy as np
+
+    want, slack = rec["iters"], max(SWEEP_ITERS[0],
+                                    SWEEP_ITERS[1] * rec["iters"])
+    what = f"mm_sweep {rec['problem']} {solver}"
+    x = out.x.cpu().numpy()
+    if not np.all(np.isfinite(x)):
+        raise RuntimeError(f"{what}: the solution is not finite")
+    if bool(out.solved) != bool(rec["solved"]):
+        raise RuntimeError(f"{what}: solved={out.solved}, the record "
+                           f"{rec['solved']}")
+    if abs(out.niters - want) > slack:
+        raise RuntimeError(f"{what}: {out.niters} iterations, the record "
+                           f"{want} +- {slack:.1f}")
+    # unsolved rows too: a wrong preconditioner also runs to itmax
+    if not err <= MM_ORACLE_SLACK * rec["oracle_rel_err"]:
+        raise RuntimeError(f"{what}: error against spsolve {err:.4e}, the "
+                           f"record {rec['oracle_rel_err']:.4e}")
+    if not rec["solved"] and (out.niters != SWEEP_SOLVER["itmax"]
+                              or out.istatus == 0):
+        raise RuntimeError(f"{what}: unsolved after {out.niters} "
+                           f"iterations, status {out.istatus}")
+
+
+def _hold_sweep_kernels(prob, sysm, M, device):
+    """The kernels of a sweep system's solves at its own shapes, each held
+    against its plain version on the same inputs in f64 (the sweep's
+    dtype): B4 and B6 on each triangle of ``M`` in the reduced-scan form
+    (to BAND_TOL; B6 alone on the triangle's scan operands), and B5 on A,
+    B (both directions) and a CSR K_P, bit for bit and repeatable.  Returns
+    the names of the kernels held."""
+    import numpy as np
+    import torch
+
+    from cpkrylov_tpu_torch.ops.cuda_spmv import (csr_matvec_plain,
+                                                  csr_rmatvec, csr_spmv)
+    from cpkrylov_tpu_torch.ops.formats import CSR, csr_from_scipy
+    from cpkrylov_tpu_torch.precond.cuda_tri import (affine_scan,
+                                                     affine_scan_plain,
+                                                     band_tri_solve,
+                                                     band_tri_solve_plain,
+                                                     scan_layout)
+    from cpkrylov_tpu_torch.precond.trisolve import ReducedScanTriFactor
+
+    f64 = torch.float64
+    rng = np.random.default_rng(13)
+
+    def vec(n):
+        return torch.as_tensor(rng.standard_normal(n), dtype=f64,
+                               device=device)
+
+    held = set()
+    for label, tf in (("L", M.factor.tf1), ("U", M.factor.tf2)):
+        if not isinstance(tf, ReducedScanTriFactor):
+            continue
+        p, r, nb = tf.panel, tf.r, tf.nblocks
+        b = vec(tf.n)
+        xk, xk2 = band_tri_solve(tf, b), band_tri_solve(tf, b)
+        xp = band_tri_solve_plain(tf, b)
+        c = torch.zeros(nb * p, dtype=f64, device=device)
+        c[:tf.n] = b
+        c = torch.bmm(tf.inv_diag, c.view(nb, p, 1)).view(nb, p)
+        mr = (-tf.w_blocks[:, p - r:, :]).permute(1, 2, 0)
+        cr = c[:, p - r:].T
+        sk, sp_ = affine_scan(mr, cr), affine_scan_plain(mr, cr)
+        torch.cuda.synchronize()
+        err = rel_2norm(xk.cpu().numpy(), xp.cpu().numpy())
+        serr = rel_2norm(sk.cpu().numpy(), sp_.cpu().numpy())
+        print(f"mm_sweep {prob} kernel band_tri float64 {label} n={tf.n} "
+              f"panel={p} r={r} nb={nb} rel_err_vs_plain={err:.3e} "
+              f"repeat_equal={torch.equal(xk, xk2)} "
+              f"scan_layout={scan_layout(p, r, f64)} affine_scan "
+              f"rel_err_vs_plain={serr:.3e} "
+              f"scan_layout={scan_layout(r, r, f64)}", flush=True)
+        if not (err <= BAND_TOL["float64"] and serr <= BAND_TOL["float64"]
+                and torch.equal(xk, xk2)):
+            raise RuntimeError(f"mm_sweep {prob} {label}: B4 or B6 differs "
+                               "from its plain version")
+        held |= {"band_tri", "affine_scan"}
+    mats = [("A", csr_from_scipy(sysm.A, f64, device)),
+            ("B", csr_from_scipy(sysm.B, f64, device))]
+    if isinstance(M.kp, CSR):
+        mats.append(("K_P", M.kp))
+    for label, mat in mats:
+        x, y = vec(mat.shape[1]), vec(mat.shape[0])
+        checks = [("matvec", lambda: csr_spmv(mat, x),
+                   csr_matvec_plain(mat, x))]
+        if mat.t is not None:
+            checks.append(("rmatvec", lambda: csr_rmatvec(mat, y),
+                           csr_matvec_plain(mat.t, y)))
+        for how, kernel, plain in checks:
+            yk, yk2 = kernel(), kernel()
+            torch.cuda.synchronize()
+            err_abs = float(torch.max(torch.abs(yk - plain)))
+            print(f"mm_sweep {prob} kernel csr_spmv float64 {label} {how} "
+                  f"{mat.shape[0]}x{mat.shape[1]} nnz={mat.nnz} "
+                  f"max_abs_err_vs_plain={err_abs:.3e} "
+                  f"repeat_equal={torch.equal(yk, yk2)}", flush=True)
+            if err_abs != 0.0 or not torch.equal(yk, yk2):
+                raise RuntimeError(f"mm_sweep {prob} {label} {how}: B5 "
+                                   "differs from its plain version")
+        held.add("csr_spmv")
+    return held
+
+
+def phase_mm_sweep(mm, device, full: bool, card: str):
+    """BASELINE.json configs[2] on the card: the six solvers at the JAX
+    sweep's settings on AUG2D-L (the preconditioner of ``mm_setup``, timed
+    by ``solve`` and priced by ``work_model``) and on CVXQP1-L, CVXQP2-L
+    (CPMINRES alone unless ``full``) and CVXQP3-L (``profile_solve``, which
+    builds its own preconditioner).  Returns the launches summed over the
+    rows."""
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    profile_solve,
+                                                    reset_launches,
+                                                    work_model)
+
+    with open(os.path.join(ROOT, SWEEP_RECORDS)) as fh:
+        records = {(r["problem"], r["kernel"]): r
+                   for r in json.load(fh)["rows"]}
+    opts = cpt.SolverOptions(**SWEEP_SOLVER)
+    total = {}
+    for prob, name, default in SWEEP_PROBLEMS:
+        if name in mm:
+            sysm, _, M, setup = mm[name]
+        else:
+            t0 = time.perf_counter()
+            sysm, M = _mm_system(name), None
+            print(f"mm_sweep {prob} generate_s="
+                  f"{time.perf_counter() - t0:.2f}", flush=True)
+        x_direct, direct_s = oracle(name)
+        held = _hold_sweep_kernels(prob, sysm, M if M is not None else
+                                   cpt.make_preconditioner(
+                                       sysm.G, sysm.B, sysm.C,
+                                       dtype=torch.float64, device=device),
+                                   device)
+        for solver in (SWEEP_SOLVERS if full else default):
+            rec = records[(prob, solver)]
+            reset_launches()
+            if name == "aug2d_l":
+                # profile_solve would build a second 5.7 GiB factor: the
+                # rows share mm_setup's, timed here as profile_solve does
+                def call():
+                    return cpt.solve(solver, sysm.b, sysm.A, sysm.B, sysm.C,
+                                     sysm.G, opts=opts, M=M,
+                                     dtype=torch.float64, device=device)
+                t0 = time.perf_counter()
+                call()
+                first_s = time.perf_counter() - t0
+                stime = float("inf")
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    out = call()
+                    stime = min(stime, time.perf_counter() - t0)
+                work = work_model(M, sysm.A.nnz, sysm.C.nnz)
+                ptime = setup["ldl_s"] + setup["pack_s"]    # in mm_setup
+            else:
+                prof = profile_solve(solver, sysm.b, sysm.A, sysm.B, sysm.C,
+                                     sysm.G, opts=opts, repeats=2,
+                                     device=device, dtype=torch.float64)
+                out, work = prof.output, prof.work
+                first_s, stime, ptime = (prof.compile_time, prof.stime,
+                                         prof.ptime)
+            launches = launch_counts()
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            per_solve = {k: v / 3 for k, v in launches.items()}
+            err = rel_2norm(out.x.cpu().numpy(), x_direct)
+            print(f"mm_sweep {prob} {solver} f64 N={sysm.n + sysm.m} "
+                  f"solved={out.solved} iters={out.niters} "
+                  f"istatus={out.istatus} (record {rec['iters']}, "
+                  f"solved={rec['solved']}) err_vs_spsolve={err:.4e} "
+                  f"(record {rec['oracle_rel_err']:.4e}, spsolve_s="
+                  f"{direct_s:.2f}) ptime_s={ptime:.3f} "
+                  f"first_s={first_s:.4f} stime_s={stime:.4f} "
+                  f"iters_per_s={out.niters / stime:.1f} "
+                  f"nnz_per_s={out.niters * work.nnz_per_iter / stime:.4g} "
+                  f"nnz_per_iter={work.nnz_per_iter:.6g} "
+                  f"band_tri={per_solve['band_tri']:.1f} "
+                  f"affine_scan={per_solve['affine_scan']:.1f} "
+                  f"csr_spmv={per_solve['csr_spmv']:.1f} (a solve) "
+                  f"card=\"{card}\"", flush=True)
+            _sweep_check(rec, solver, out, err)
+            unheld = [k for k in ("band_tri", "affine_scan", "csr_spmv")
+                      if launches[k] and k not in held]
+            if unheld:
+                raise RuntimeError(f"mm_sweep {prob} {solver}: {unheld} "
+                                   "launched but not held against the plain "
+                                   "version at this system's shapes")
+            if launches["csr_spmv"] == 0:
+                raise RuntimeError(f"mm_sweep {prob} {solver}: no B5 launch")
+            if name == "aug2d_l":
+                for kname in ("band_tri", "affine_scan"):
+                    if per_solve[kname] < 2 * out.niters:
+                        raise RuntimeError(
+                            f"mm_sweep {prob} {solver}: {kname} launched "
+                            f"{per_solve[kname]:.1f} times a solve")
+        torch.cuda.empty_cache()
+    return total
+
+
+def _profile_once(fn, span: str):
+    """``device_profile`` of one call of ``fn`` inside a span of its own
+    (synchronized at its end): (profile, fn's result)."""
+    import torch
+
+    from cpkrylov_tpu_torch.utils.profiling import device_profile
+
+    res = []
+
+    def run():
+        with torch.profiler.record_function(span):
+            res.append(fn())
+            torch.cuda.synchronize()
+
+    return device_profile(run, span=span), res[0]
+
+
+def phase_mm_mixed(mm, device, card: str):
+    """ROADMAP A.2 on the card: ``solve(..., dtype=torch.float32)`` of
+    AUG2D-L and CVXQP3-L with CPMINRES, to atol = rtol = 1e-6 on the f64
+    true residual.  The f32 preconditioner comes from ``mm_setup``'s host
+    LDL^T by the route ``make_preconditioner`` takes at f32 (the build
+    probe and the df64 swap).  The blocks are not DIA, so ``refine="auto"``
+    takes ``solve_mixed``'s host loop.  A second run through
+    ``solve_mixed`` itself must repeat the first bit for bit: here for
+    AUG2D-L, and in ``phase_checkpoint`` for CVXQP3-L, whose second run
+    (about 45 s of df64 triangle products) goes through its reloaded
+    preconditioner.  One direct solve of each f32 preconditioner is
+    profiled: the df64 triangle product's launches and the device's idle
+    share.  Returns (launches of the first runs, {name: (M32, first
+    run's output)})."""
+    import numpy as np
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.precond import ldl_host
+    from cpkrylov_tpu_torch.precond.cp import build_precond
+    from cpkrylov_tpu_torch.precond.trisolve import ReducedScanTriFactor
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    opts = cpt.SolverOptions(**MM_SOLVER)
+    total, kept = {}, {}
+    for name in ("aug2d_l", "cvxqp3_l"):
+        sysm, hf, _, _ = mm[name]
+        t0 = time.perf_counter()
+        M32 = build_precond(hf.fac, hf.ksp, hf.n, hf.m,
+                            options=cpt.PrecondOptions(), panel=256,
+                            dtype=torch.float32, device=device,
+                            base_order=hf.base_order)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        f = M32.factor
+        t1 = getattr(f, "t1", None)
+        # the build probe's first reading, of the plain f32 factor: above
+        # 1e-2 it swaps in the df64-applied factor and probes that
+        z = np.random.default_rng(0).standard_normal(hf.n + hf.m)
+        y = ldl_host.solve_host(hf.fac, z, dtype=np.float32)
+        plain_probe = float(np.linalg.norm(
+            hf.ksp @ np.asarray(y, np.float64) - z) / np.linalg.norm(z))
+        print(f"mm_mixed {name} f32 factor={type(f).__name__} "
+              f"plain_f32_probe={plain_probe:.4e} "
+              f"probe_rel={M32.probe_rel:.4e} "
+              f"tf1={type(f.tf1).__name__}(panel={f.tf1.panel}, "
+              f"r={getattr(f.tf1, 'r', None)}, "
+              f"dtype={str(f.tf1.inv_diag.dtype)[6:]}) "
+              f"df64_ell_slots={None if t1 is None else t1.hi.shape[0]} "
+              f"build_s={build_s:.2f} device_gib="
+              f"{torch.cuda.memory_allocated() / 2**30:.2f}", flush=True)
+        x_direct, _ = oracle(name)
+        bnorm = float(np.linalg.norm(sysm.b))
+        contract = MM_SOLVER["atol"] + MM_SOLVER["rtol"] * bnorm
+
+        reset_launches()
+        out = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
+                        opts=opts, M=M32, dtype=torch.float32,
+                        device=device)
+        launches = launch_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        x = out.x.cpu().numpy()
+        rnorm = float(np.linalg.norm(sysm.b - sysm.K @ x))
+        err = rel_2norm(x, x_direct)
+        print(f"mm_mixed {name} cpminres f32-inner f64-outer "
+              f"solved={out.solved} nouter={len(out.resid_history) - 1} "
+              f"niters={out.niters} true_resid={rnorm:.4e} "
+              f"contract={contract:.4e} err_vs_spsolve={err:.4e} (f64 JAX "
+              f"record {MM_RECORD[name][2]:.4e}) stime_s={out.stime:.3f} "
+              f"launches={launches} card=\"{card}\"", flush=True)
+        if not (out.solved and np.all(np.isfinite(x))):
+            raise RuntimeError(f"mm_mixed {name}: not solved "
+                               f"(status {out.istatus})")
+        if not rnorm <= contract:
+            raise RuntimeError(f"mm_mixed {name}: true residual "
+                               f"{rnorm:.4e} > {contract:.4e}")
+        if not err <= MIXED_MM_SLACK * MM_RECORD[name][2]:
+            raise RuntimeError(f"mm_mixed {name}: error against spsolve "
+                               f"{err:.4e} > {MIXED_MM_SLACK} x the record")
+        if name == "aug2d_l":
+            reset_launches()
+            again = cpt.solve_mixed("cpminres", sysm.b, sysm.A, sysm.B,
+                                    sysm.C, sysm.G, opts=opts, M=M32,
+                                    device=device)
+            check_repeat(f"mm_mixed {name}", out, launches, again,
+                         launch_counts())
+        if launches["csr_spmv"] == 0:
+            raise RuntimeError(f"mm_mixed {name}: no B5 launch")
+        if name == "aug2d_l":
+            f32_band = all(isinstance(t, ReducedScanTriFactor)
+                           and t.inv_diag.dtype == torch.float32
+                           for t in (f.tf1, f.tf2))
+            if not (f32_band and launches["band_tri"] >= 2 * out.niters
+                    and launches["affine_scan"] >= 2 * out.niters):
+                raise RuntimeError(f"mm_mixed aug2d_l: B4/B6 not launched "
+                                   f"in f32 ({launches})")
+        # one direct solve of the f32 preconditioner, profiled
+        z = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            sysm.n + sysm.m), dtype=torch.float32, device=device)
+        M32._direct_solve(z)
+        reset_launches()
+        prof, _ = _profile_once(lambda: M32._direct_solve(z),
+                                "cpkrylov.direct_solve")
+        counts = launch_counts()
+        print(f"mm_mixed {name} one direct solve (f32, df64-applied) "
+              f"span_wall_ms={prof.wall_ms:.3f} "
+              f"device_busy_ms={prof.busy_ms:.3f} "
+              f"idle_share={prof.idle_share:.4f} "
+              f"launches={prof.launches} device_ops={prof.device_ops} "
+              f"band_tri={counts['band_tri']} "
+              f"affine_scan={counts['affine_scan']} "
+              f"csr_spmv={counts['csr_spmv']}", flush=True)
+        kept[name] = (M32, out, launches)
+        torch.cuda.empty_cache()
+    return total, kept
+
+
+def check_repeat(what, out, launches, again, again_launches):
+    """A second mixed run (``MixedSolveOutput``) against the first
+    (``SolveOutput``): the same passes, iterations, x bit for bit and
+    launches; prints the second run's inner counts."""
+    import numpy as np
+
+    x = out.x.cpu().numpy()
+    same = (again.nouter == len(out.resid_history) - 1
+            and again.niters == out.niters and np.array_equal(again.x, x)
+            and again_launches == launches)
+    print(f"{what} second run: nouter={again.nouter} "
+          f"inner={list(again.inner_niters)} niters={again.niters} "
+          f"stime_s={again.stime:.3f} x_bitwise="
+          f"{np.array_equal(again.x, x)} launches_equal="
+          f"{again_launches == launches}", flush=True)
+    if not same:
+        raise RuntimeError(f"{what}: the second run differs from the first")
+
+
+def phase_operator_a(mm, device, card: str):
+    """BASELINE.json configs[3] on the card: CVXQP3-L with A given only as
+    a callable (the port's CSR product of A, kernel B5, on the card), GHN
+    and two forced refinement steps, held to the explicit-A solve with the
+    same options: iterations within +-1 and the error against spsolve
+    within 1.1 x.  Returns the operator solve's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.ops import cuda_spmv, spmv
+    from cpkrylov_tpu_torch.ops.formats import csr_from_scipy
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    sysm, _, M, _ = mm["cvxqp3_l"]
+    Mo = dataclasses.replace(M, options=cpt.PrecondOptions(
+        **OPERATOR_A_POPTS))
+    opts = cpt.SolverOptions(**MM_SOLVER)
+    A_dev = csr_from_scipy(sysm.A, dtype=torch.float64, device=device,
+                           transpose=False)
+    seen = {"calls": 0, "b5": 0}
+
+    def amv(v):
+        before = cuda_spmv.LAUNCHES
+        y = spmv.matvec(A_dev, v)
+        seen["calls"] += 1
+        seen["b5"] += cuda_spmv.LAUNCHES - before
+        return y
+
+    A_op = cpt.aslinearoperator(amv, shape=sysm.A.shape)
+    reset_launches()
+    out = cpt.solve("cpminres", sysm.b, A_op, sysm.B, sysm.C, sysm.G,
+                    opts=opts, M=Mo, dtype=torch.float64, device=device)
+    launches = launch_counts()
+    ref = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
+                    opts=opts, M=Mo, dtype=torch.float64, device=device)
+    x_direct, _ = oracle("cvxqp3_l")
+    x = out.x.cpu().numpy()
+    err = rel_2norm(x, x_direct)
+    err_ref = rel_2norm(ref.x.cpu().numpy(), x_direct)
+    print(f"operator_a cvxqp3_l cpminres f64 A=callable "
+          f"popts={OPERATOR_A_POPTS} solved={out.solved} "
+          f"iters={out.niters} (explicit A {ref.niters}) "
+          f"err_vs_spsolve={err:.4e} (explicit A {err_ref:.4e}) "
+          f"stime_s={out.stime:.4f} (explicit A {ref.stime:.4f}) "
+          f"callable_calls={seen['calls']} callable_b5={seen['b5']} "
+          f"launches={launches} card=\"{card}\"", flush=True)
+    if not (out.solved and ref.solved and np.all(np.isfinite(x))):
+        raise RuntimeError("operator_a: not solved")
+    if abs(out.niters - ref.niters) > 1:
+        raise RuntimeError(f"operator_a: {out.niters} iterations against "
+                           f"{ref.niters} with the explicit A")
+    if not err <= MM_ORACLE_SLACK * err_ref:
+        raise RuntimeError(f"operator_a: error {err:.4e} against "
+                           f"{err_ref:.4e} with the explicit A")
+    if seen["calls"] < out.niters or seen["b5"] != seen["calls"]:
+        raise RuntimeError(f"operator_a: the callable ran {seen['calls']} "
+                           f"times with {seen['b5']} B5 launches")
+    return launches
+
+
+def phase_checkpoint(mm, kept, device, card: str):
+    """``save_pytree`` / ``load_pytree`` on the card: CVXQP3-L's f64
+    preconditioner (``mm_setup``) and its mixed f32 one (``mm_mixed``),
+    each loaded into a template on the card and from the file alone (the
+    load a new process makes, timed beside the f64 build's LDL^T and
+    packing), and held to the original: the direct solve of both loads
+    bit for bit on a fixed vector, and, through the load without a
+    template, the same iterations and a bit-identical x in a full solve
+    (for the f32 one, the mixed
+    solve's second run through ``solve_mixed``, held to ``mm_mixed``'s
+    first run with the same launches).  AUG2D-L's 5.7 GiB factor is left
+    out.  Returns the launches of the reloaded solves."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    sysm, _, M64, setup = mm["cvxqp3_l"]
+    M32, out32, launches32 = kept["cvxqp3_l"]
+    opts = cpt.SolverOptions(**MM_SOLVER)
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, M, dtype in (("f64", M64, torch.float64),
+                              ("f32", M32, torch.float32)):
+            path = os.path.join(tmp, f"cvxqp3_l_{tag}.npz")
+            build_s = setup["ldl_s"] + setup["pack_s"]
+            build = f"build_s(ldl+pack)={build_s:.3f}" if tag == "f64" else ""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_pytree(M, path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            Mt = load_pytree(M, path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            # the file alone, as a new process would load it: this one
+            # runs the solve below
+            t0 = time.perf_counter()
+            M2 = load_pytree(None, path, device=device)
+            torch.cuda.synchronize()
+            alone_s = time.perf_counter() - t0
+            z = torch.as_tensor(np.random.default_rng(7).standard_normal(
+                M.n + M.m), dtype=dtype, device=device)
+            want = M._direct_solve(z)
+            same_direct = (torch.equal(want, M2._direct_solve(z))
+                           and torch.equal(want, Mt._direct_solve(z)))
+            on_card = all(t.device.type == "cuda" for t in (
+                M2.kp.data, M2.factor.dinv, Mt.kp.data, Mt.factor.dinv))
+            reset_launches()
+            if tag == "f64":
+                got = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C,
+                                sysm.G, opts=opts, M=M2, dtype=dtype,
+                                device=device)
+                launches = launch_counts()
+                ref = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C,
+                                sysm.G, opts=opts, M=M, dtype=dtype,
+                                device=device)
+                same = (torch.equal(got.x, ref.x) and got.solved
+                        and got.niters == ref.niters)
+                iters = (got.niters, ref.niters)
+            else:
+                got = cpt.solve_mixed("cpminres", sysm.b, sysm.A, sysm.B,
+                                      sysm.C, sysm.G, opts=opts, M=M2,
+                                      device=device)
+                launches = launch_counts()
+                check_repeat("mm_mixed cvxqp3_l (reloaded preconditioner)",
+                             out32, launches32, got, launches)
+                same, iters = True, (got.niters, out32.niters)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            print(f"checkpoint cvxqp3_l {tag} "
+                  f"factor={type(M.factor).__name__} "
+                  f"file_mib={os.path.getsize(path) / 2**20:.1f} "
+                  f"save_s={save_s:.3f} load_s={load_s:.3f} "
+                  f"load_without_template_s={alone_s:.3f} "
+                  f"{build} "
+                  f"on_card={on_card} direct_solve_bitwise={same_direct} "
+                  f"iters={iters[0]} (original {iters[1]}) "
+                  f"x_bitwise={same} card=\"{card}\"", flush=True)
+            if not (on_card and same_direct and same):
+                raise RuntimeError(f"checkpoint {tag}: the reloaded "
+                                   "preconditioner differs")
+            del M2, Mt
+    return total
+
+
+def phase_subsystems(mm, device, card: str):
+    """The auxiliaries on the card: ``solve(debug=True)`` on cvxqp1_m with
+    the count of the plain solve, ``validate_system`` rejecting a bad B,
+    ``check_finite`` on the output, ``matmat`` of AUG2D-L's K_P on a block
+    of 4 columns against 4 B5 products, and ``examples/exprog1_torch.py``
+    run to its end.  Returns the launches of the debug solve and the
+    block product."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.ops import spmv
+    from cpkrylov_tpu_torch.ops.formats import CSR
+    from cpkrylov_tpu_torch.utils.debug import (ValidationError,
+                                                check_finite)
+    from cpkrylov_tpu_torch.utils.fixtures import load_fixture
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    fix = load_fixture("cvxqp1_m")
+    kw = dict(device=device, dtype=torch.float64,
+              opts=cpt.SolverOptions(atol=1e-6, rtol=1e-6, itmax=500),
+              precond_opts=cpt.PrecondOptions(residual_update=True, nitref=1,
+                                              force_itref=True))
+    reset_launches()
+    out = cpt.solve("cpminres", fix.b, fix.A, fix.B, fix.C, fix.G,
+                    debug=True, **kw)
+    plain = cpt.solve("cpminres", fix.b, fix.A, fix.B, fix.C, fix.G, **kw)
+    check_finite(out)
+    try:
+        cpt.solve("cpminres", fix.b, fix.A, fix.B[:, :-1], fix.C, fix.G,
+                  debug=True, **kw)
+        rejected = False
+    except ValidationError:
+        rejected = True
+    kp = mm["aug2d_l"][2].kp
+    if not isinstance(kp, CSR):
+        raise RuntimeError(f"AUG2D-L's K_P is {type(kp).__name__}")
+    X = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (kp.shape[1], 4)), device=device)
+    Y = spmv.matmat(kp, X)
+    cols = torch.stack([spmv.matvec(kp, X[:, j].contiguous())
+                        for j in range(4)], dim=1)
+    mm_err = rel_max(Y, cols)
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run(
+            [sys.executable,
+             os.path.join(ROOT, "examples", "exprog1_torch.py")],
+            capture_output=True, text=True, timeout=600, cwd=tmp)
+    ex_s = time.perf_counter() - t0
+    ex_lines = [ln for ln in res.stdout.splitlines()
+                if ln.startswith(("solved", "iterations", "rel. error"))]
+    print(f"subsystems debug_solve iters={out.niters} (plain "
+          f"{plain.niters}) check_finite=ok bad_B_rejected={rejected} "
+          f"matmat_kp_4cols_rel_err={mm_err:.3e} exprog1_torch rc="
+          f"{res.returncode} s={ex_s:.1f} {ex_lines} card=\"{card}\"",
+          flush=True)
+    if not (out.solved and out.niters == plain.niters):
+        raise RuntimeError("subsystems: solve(debug=True) differs")
+    if not rejected:
+        raise RuntimeError("subsystems: validate_system let a bad B pass")
+    if not mm_err <= CSR_SCIPY_TOL["float64"]:
+        raise RuntimeError(f"subsystems: matmat differs by {mm_err:.3e}")
+    if res.returncode != 0 or not any(
+            ln.split(":")[1].split()[0] == "True" for ln in ex_lines
+            if ln.startswith("solved")):
+        raise RuntimeError(f"subsystems: exprog1_torch.py failed: "
+                           f"{res.stderr[-2000:]}")
+    return launches
+
+
 def kernel_entry(name: str, source: str, replaces: str) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"cpkrylov_tpu_torch/csrc/{source}",
             "replaces": replaces, "max_abs_err": 0.0, "library_ms": None}
 
 
-def run_phases(device, profile_dir=None) -> list:
-    """Phases 3-15 (and the profile when asked); returns the kernels' JSON
+def phase_profile_mm(mm, device, outdir):
+    """With ``--profile``: one profiled run of the sweep's CPMINRES rows on
+    CVXQP1-L and CVXQP2-L and of the operator-only A: span wall, device
+    busy time, idle share and launches an iteration, and the per-op
+    tables (``.txt``) in DIR.  The mixed solves are not traced whole (one
+    of AUG2D-L holds about 1.2M launches, and reading its trace takes
+    minutes): ``mm_mixed`` profiles one direct solve of each."""
+    import dataclasses
+
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.ops import spmv
+    from cpkrylov_tpu_torch.ops.formats import csr_from_scipy
+    from cpkrylov_tpu_torch.utils.profiling import (SOLVE_SPAN,
+                                                    device_profile)
+
+    os.makedirs(outdir, exist_ok=True)
+    runs = {}
+    for name in ("cvxqp1_l", "cvxqp2_l"):
+        sysm = _mm_system(name)
+        M = cpt.make_preconditioner(sysm.G, sysm.B, sysm.C, device=device)
+        runs["mm_sweep_" + name] = (SOLVE_SPAN, lambda s=sysm, M=M: cpt.solve(
+            "cpminres", s.b, s.A, s.B, s.C, s.G, M=M, device=device,
+            dtype=torch.float64, opts=cpt.SolverOptions(**SWEEP_SOLVER)))
+    sysm, _, M, _ = mm["cvxqp3_l"]
+    A_dev = csr_from_scipy(sysm.A, dtype=torch.float64, device=device,
+                           transpose=False)
+    A_op = cpt.aslinearoperator(lambda v: spmv.matvec(A_dev, v),
+                                shape=sysm.A.shape)
+    Mo = dataclasses.replace(M, options=cpt.PrecondOptions(
+        **OPERATOR_A_POPTS))
+    runs["operator_a"] = (SOLVE_SPAN, lambda: cpt.solve(
+        "cpminres", sysm.b, A_op, sysm.B, sysm.C, sysm.G, M=Mo,
+        device=device, dtype=torch.float64,
+        opts=cpt.SolverOptions(**MM_SOLVER)))
+    for name, (span, fn) in runs.items():
+        fn()                                   # warm
+        outs = []
+        prof = device_profile(lambda: outs.append(fn()), span=span)
+        with open(os.path.join(outdir, f"profile_{name}.txt"), "w") as fh:
+            fh.write(prof.table)
+        iters = max(outs[0].niters, 1)
+        print(f"profile {name} span={span} iters={outs[0].niters} "
+              f"span_wall_ms={prof.wall_ms:.4f} "
+              f"device_busy_ms={prof.busy_ms:.4f} "
+              f"idle_share={prof.idle_share:.4f} "
+              f"device_ops={prof.device_ops} launches={prof.launches} "
+              f"launches_per_iter={prof.launches / iters:.1f}", flush=True)
+        if prof.device_ops == 0:
+            raise RuntimeError(f"the profiled {name} run shows no device "
+                               "activity")
+
+
+def _timed(name, fn, *args):
+    """``fn(*args)``, with a line of its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name} seconds={time.perf_counter() - t0:.1f}",
+          flush=True)
+    return out
+
+
+def run_phases(device, profile_dir=None, full_sweep=False) -> list:
+    """Phases 3-20 (and the profile when asked); returns the kernels' JSON
     entries."""
     import torch
 
@@ -1809,25 +2575,47 @@ def run_phases(device, profile_dir=None) -> list:
     sysm = fixtures.banded_saddle_system(1_000_000, 250_000, bandwidth=3)
     print(f"fixture banded 1000000x250000 seconds="
           f"{time.perf_counter() - t0:.2f}", flush=True)
-    phase_kernels(sysm, device, results)
-    mm = phase_mm_setup(device)
-    phase_mm_kernels(mm, device, results)
+    _timed("kernels", phase_kernels, sysm, device, results)
+    mm = _timed("mm_setup", phase_mm_setup, device)
+    _timed("mm_kernels", phase_mm_kernels, mm, device, results)
     torch.cuda.empty_cache()
     # the golden solve first among the solves: it also brings up the
     # libraries (cuBLAS for the dot products) that a process's first solve
     # initializes
-    phase_golden(device)
-    by_path = {"golden_mixed": phase_golden_mixed(device)}
-    by_path["main_path"], M = phase_main_path(sysm, device)
-    by_path["main_mixed"], M32 = phase_main_mixed(sysm, device)
-    by_path["solvers_banded"] = phase_solvers_banded(sysm, M, device)
+    _timed("golden", phase_golden, device)
+    by_path = {"golden_mixed": _timed("golden_mixed", phase_golden_mixed,
+                                      device)}
+    by_path["main_path"], M = _timed("main_path", phase_main_path, sysm,
+                                     device)
+    by_path["main_mixed"], M32 = _timed("main_mixed", phase_main_mixed,
+                                        sysm, device)
+    by_path["solvers_banded"] = _timed("solvers_banded",
+                                       phase_solvers_banded, sysm, M, device)
     for name in ("aug2d_l", "cvxqp3_l"):
         msys, _, mM, setup = mm[name]
-        by_path[name] = phase_mm_solve(name, msys, mM, setup, device)
-    by_path["golden_solvers"] = phase_golden_solvers(device)
-    by_path.update(phase_dist(sysm, M, device))
+        by_path[name] = _timed("mm_" + name, phase_mm_solve, name, msys, mM,
+                               setup, device)
+    card = nvidia_smi_card()
+    by_path["mm_sweep"] = _timed("mm_sweep", phase_mm_sweep, mm, device,
+                                 full_sweep, card)
+    by_path["mm_mixed"], kept = _timed("mm_mixed", phase_mm_mixed, mm,
+                                       device, card)
+    by_path["operator_a"] = _timed("operator_a", phase_operator_a, mm,
+                                   device, card)
+    by_path["checkpoint"] = _timed("checkpoint", phase_checkpoint, mm, kept,
+                                   device, card)
+    by_path["subsystems"] = _timed("subsystems", phase_subsystems, mm,
+                                   device, card)
     if profile_dir:
-        phase_profile(sysm, device, M, M32, mm, profile_dir)
+        phase_profile_mm(mm, device, profile_dir)
+    del kept
+    torch.cuda.empty_cache()
+    by_path["golden_solvers"] = _timed("golden_solvers",
+                                       phase_golden_solvers, device)
+    by_path.update(_timed("dist", phase_dist, sysm, M, device))
+    if profile_dir:
+        _timed("profile", phase_profile, sysm, device, M, M32, mm,
+               profile_dir)
 
     kernels = []
     for name, res in results.items():
@@ -1858,6 +2646,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="profile one more main-path solve into DIR")
+    ap.add_argument("--full-sweep", action="store_true",
+                    help="run all six solvers on CVXQP2-L in mm_sweep "
+                         "(1000 iterations each)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1881,7 +2672,13 @@ def main(argv=None) -> int:
     print(f"build seconds={_build.build_kernels():.2f} "
           f"dir={os.path.relpath(_build.BUILD_DIR, ROOT)}", flush=True)
 
-    kernels = run_phases(device, args.profile)
+    t0 = time.perf_counter()
+    pool = start_oracles()
+    try:
+        kernels = run_phases(device, args.profile, args.full_sweep)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    print(f"phases seconds={time.perf_counter() - t0:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_card())
     print(json.dumps({"ok": True, "device": {

@@ -88,7 +88,7 @@ def solve(method, b, A, B, C, G, *,
           precond_opts: PrecondOptions | None = None,
           backend: str = "auto", ordering="auto", panel: int = 256,
           dtype=None, device=None, M: CPPrecond | None = None,
-          refine: bool | str = "auto") -> SolveOutput:
+          refine: bool | str = "auto", debug: bool = False) -> SolveOutput:
     """Solve the regularized saddle-point system [A B'; B -C] [x1;x2] = b.
 
     ``method`` is a kernel name ("cpminres", "cpcg", "cpcglanczos",
@@ -103,6 +103,11 @@ def solve(method, b, A, B, C, G, *,
     become the inner loop of a true-residual refinement (``solve_mixed``)
     that reaches the f64 contract.  "auto" enables it exactly for f32
     solves on a CUDA device with explicit host blocks; True/False force it.
+
+    ``debug=True`` validates the blocks' structure
+    (``utils.debug.validate_system``) before any factorization, and checks
+    that the solution is finite (``utils.debug.check_finite``, which raises
+    FloatingPointError) after the solve.
     """
     opts = opts or SolverOptions()
     if callable(method):
@@ -113,6 +118,9 @@ def solve(method, b, A, B, C, G, *,
     if isinstance(b, torch.Tensor):
         b = b.detach().cpu().numpy()
     b = np.asarray(b).reshape(-1)
+    if debug:
+        from .utils.debug import validate_system
+        validate_system(A, B, C, G, b)
     dtype = torch_dtype(dtype if dtype is not None else b.dtype)
     n = A.shape[0]
     m = C.shape[0]
@@ -133,6 +141,9 @@ def solve(method, b, A, B, C, G, *,
                            device=device)
         last = mout.inner_outputs[-1] if mout.inner_outputs else None
         x = torch.as_tensor(mout.x).to(device)
+        if debug:
+            from .utils.debug import check_finite
+            check_finite(x, "solution")
         return SolveOutput(
             x=x, x1=x[:n], x2=x[n:], niters=mout.niters,
             resid_history=np.asarray(mout.resid_history),
@@ -165,6 +176,9 @@ def solve(method, b, A, B, C, G, *,
         sync(device)
     stime = time.perf_counter() - t1
 
+    if debug:
+        from .utils.debug import check_finite
+        check_finite((x1, x2), "solution")
     return SolveOutput(
         x=torch.cat([x1, x2]), x1=x1, x2=x2, niters=res.niters,
         resid_history=res.trimmed_history(), solved=res.solved,

@@ -100,6 +100,23 @@ class SchurFactor:
     def has_shard_plan(self) -> bool:
         return self.shard_gidx is not None
 
+    @property
+    def work_nnz(self) -> int:
+        """This rank's share of one distributed direct solve's arithmetic
+        volume (``utils.profiling.work_model``): two local solves and two
+        products by A_dS, and on rank 0 the s x s interface solve.  The
+        shares sum to the JAX package's count for the device stack
+        (utils/profiling.py:58-66) where every rank's blocks have device
+        0's sizes and form (the JAX count is device 0's times the device
+        count), with one difference: the JAX device multiplies by A_dS as
+        a padded ELL block and counts its slots, this rank by CSR and
+        counts its stored entries."""
+        lf = self.local_factor
+        local = lf.tf1.work_nnz + lf.tf2.work_nnz + int(lf.dinv.shape[0])
+        ads = self.a_ds.nnz if self.a_ds is not None else 0
+        return (2 * local + 2 * ads
+                + (self.s * self.s if self.comm.rank == 0 else 0))
+
     def _interface(self, u_d, z_s_part):
         """y_S and y_d from u_d = A_dd^-1 z_d and this rank's part of z_S
         (all of it, or the entries it owns): one all-reduce of 2s

@@ -186,6 +186,15 @@ class CPPrecond:
         preconditioner application (opLDL2.m:193-195)."""
         return spmv.matvec(self.kp, z)
 
+    def to_dense_inverse(self) -> torch.Tensor:
+        """K_P^-1 as a dense (N, N) tensor on the preconditioner's device,
+        one ``_direct_solve`` a column: the reference's ``double()``
+        (opLDL2.m:138-149), a diagnostic for small systems."""
+        N = self.n + self.m
+        eye = torch.eye(N, dtype=self.kp.dtype, device=self.kp.data.device)
+        return torch.stack([self._direct_solve(eye[:, j].contiguous())
+                            for j in range(N)], dim=1)
+
 
 # ---------------------------------------------------------------------------
 # Host-side construction

@@ -65,6 +65,12 @@ class BidiagTriFactor:
     n: int
     reverse: bool = False
 
+    @property
+    def work_nnz(self) -> int:
+        """Arithmetic volume of one solve (a, invd and b read once), as the
+        JAX package counts it (pallas_bidiag.py:91)."""
+        return 3 * self.n
+
 
 def _bidiag_parts(T, upper: bool, dtype: torch.dtype):
     """(d, off) of a scipy bidiagonal matrix, off[i] the coupling entry of

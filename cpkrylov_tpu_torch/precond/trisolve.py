@@ -49,6 +49,14 @@ class BlockTriFactor:
     def nblocks(self) -> int:
         return int(self.inv_diag.shape[0])
 
+    @property
+    def work_nnz(self) -> int:
+        """Arithmetic volume of one solve (``utils.profiling.work_model``):
+        the stored off-panel entries plus the dense panel inverses, as the
+        JAX package counts it (trisolve.py:53)."""
+        return (int(torch.count_nonzero(self.off_data))
+                + self.nblocks * self.panel * self.panel)
+
 
 def _invert_panels_f(diag_f: np.ndarray) -> np.ndarray:
     """Invert a stack of lower-triangular panels stored as an F-ordered
@@ -171,6 +179,17 @@ class ReducedScanTriFactor:
     @property
     def nblocks(self) -> int:
         return int(self.inv_diag.shape[0])
+
+    @property
+    def work_nnz(self) -> int:
+        """Arithmetic volume of one solve, the JAX package's count for this
+        form (trisolve.py:317): c = inv b and x = c - W s (nb (p^2 + p r))
+        plus its scan's r^2 maps over log2(nb) levels.  Kernel B4 carries
+        the scan sequentially (nb r^2); the count stays the reference's so
+        that the two work models compare."""
+        nb, p, r = self.nblocks, self.panel, self.r
+        levels = max(1, int(np.ceil(np.log2(max(nb, 2)))))
+        return nb * (p * p + p * r) + nb * r * r * levels
 
 
 def pack_reduced_scan_np(T, panel: int = 128, r: int | None = None,

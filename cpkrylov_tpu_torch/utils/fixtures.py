@@ -152,3 +152,34 @@ def banded_saddle_system(n: int, m: int, *, bandwidth: int = 3,
     b = rng.standard_normal(n + m)
     return SaddleSystem(name=f"banded_{n}x{m}_bw{bandwidth}", A=A, B=B, C=C,
                         G=G, b=b, K=K)
+
+
+def ipm_kkt_system(n: int, m: int, *, mu: float = 1e-4, rho: float = 1e-6,
+                   delta: float = 1e-6, density: float = 0.01,
+                   seed: int = 0) -> SaddleSystem:
+    """Interior-point-like KKT system (Maros-Meszaros analogue).
+
+    Mirrors the structure of the reference's fixtures
+    (examples/cpk_exprog1.m:10-17): leading block H + rho*I plus a barrier
+    diagonal S^{-1}Z whose entries spread as mu -> 0 (ill-conditioning knob),
+    constraint block J, and -delta*I regularization.  The draws follow the
+    JAX package's order, so both build the same matrices and rhs.
+    """
+    rng = np.random.default_rng(seed)
+    Hraw = sp.random(n, n, density=density, random_state=rng, format="csr")
+    H = Hraw + Hraw.T
+    H = H + sp.diags(np.abs(H).sum(axis=1).A1 + 1.0)  # diagonally dominant
+    # barrier diagonal: entries from mu to 1/mu (log-uniform)
+    expo = rng.uniform(-1.0, 1.0, size=n)
+    barrier = mu ** expo
+    Q = (H + sp.diags(barrier) + rho * sp.identity(n)).tocsr()
+    J = sp.random(m, n, density=min(1.0, density * 4), random_state=rng,
+                  format="csr")
+    J = J + sp.csr_matrix((np.ones(m), (np.arange(m), np.arange(m))),
+                          shape=(m, n))
+    C = (delta * sp.identity(m)).tocsr()
+    G = sp.diags(Q.diagonal()).tocsr()
+    K = sp.bmat([[Q, J.T], [J, -C]], format="csr")
+    b = rng.standard_normal(n + m)
+    return SaddleSystem(name=f"ipm_kkt_{n}x{m}_mu{mu:g}", A=Q, B=J, C=C,
+                        G=G, b=b, K=K)

@@ -11,8 +11,13 @@ time and wall time come from the same trace, so the idle share they give is
 that of the profiled run: the profiler's own host overhead counts as idle,
 which makes it an upper bound of the unprofiled idle share.
 
-Port of the ``trace`` part of ``cpkrylov_tpu/utils/profiling.py``; its
-work model waits for the benchmark.
+Port of ``cpkrylov_tpu/utils/profiling.py``: :func:`trace` writes a
+Chrome trace of the enclosed block; :func:`work_model` is the static
+per-iteration work in nonzeros touched (2 SpMVs + the preconditioner's
+direct solves and K_P products, SURVEY.md section 3.2), and
+:func:`profile_solve` times a solve (first call apart, then the best of
+warm repeats) and reports iterations/s and work-model nnz/s.  The work
+model counts entries, not bytes: it implies no bandwidth.
 
 :func:`launch_counts` reads the ``LAUNCHES`` counters of the hand-written
 kernels B1-B8 (each wrapper adds one where it launches its kernel, and
@@ -21,12 +26,15 @@ which kernels carried it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
 import os
 import tempfile
+import time
 
+import numpy as np
 import torch
 
 SOLVE_SPAN = "cpkrylov.solve"   # record_function span around the iteration
@@ -118,12 +126,9 @@ def device_profile(fn, *, trace_path: str | None = None,
     """Run ``fn()`` once under ``torch.profiler`` (CPU and, when present,
     CUDA activity) and summarize its last ``span``.  The Chrome trace is
     kept at ``trace_path`` when one is given."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=_activities()) as prof:
         fn()
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=40)
@@ -133,3 +138,164 @@ def device_profile(fn, *, trace_path: str | None = None,
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
     return summarize_trace(events, table, span)
+
+
+def _activities():
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """``torch.profiler`` trace over the enclosed block (host ops and, with
+    CUDA, device kernels), written as a Chrome trace ``trace.json`` into
+    ``logdir`` for Perfetto or chrome://tracing."""
+    from torch.profiler import profile
+
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=_activities()) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkModel:
+    """Static per-iteration work in nonzeros touched (SURVEY.md 3.2)."""
+
+    nnz_a: int              # A*v
+    nnz_c: int              # C*q
+    nnz_factor: int         # one direct solve: trisolves + diag + perms
+    nnz_kp: int             # one K_P SpMV (refinement residual / GHN cache)
+    solves_per_iter: float  # direct solves per iteration (incl. refinement)
+    kp_spmv_per_iter: float
+
+    @property
+    def nnz_per_iter(self) -> float:
+        return (self.nnz_a + self.nnz_c
+                + self.solves_per_iter * self.nnz_factor
+                + self.kp_spmv_per_iter * self.nnz_kp)
+
+
+def _factor_nnz(M) -> int:
+    """Arithmetic volume of one direct solve: each factor form reports its
+    own (``work_nnz``), plus the block-diagonal scale.  A distributed
+    ``SchurFactor`` reports this rank's share (``parallel/schur.py``)."""
+    f = M.factor
+    if hasattr(f, "local_factor"):          # parallel.schur.SchurFactor
+        return f.work_nnz
+    return f.tf1.work_nnz + f.tf2.work_nnz + int(f.dinv.shape[0])
+
+
+def work_model(M, nnz_a: int, nnz_c: int) -> WorkModel:
+    """Work model for a solve with preconditioner ``M`` (``CPPrecond``)."""
+    opts = M.options
+    # Each direct solve runs factor_nitref refinement passes
+    # (CPPrecond._direct_solve), each one K_P SpMV and one factor solve.
+    per_direct_solves = 1 + M.factor_nitref
+    per_direct_kp = M.factor_nitref
+    # The kernel applies M once an iteration; opts.nitref adds up to nitref
+    # outer refinement passes (always taken when force_itref).
+    outer = opts.nitref if opts.force_itref else 0
+    kp_spmv = per_direct_kp * (1 + outer) + (1 if opts.nitref > 0 else 0) \
+        + outer + (1 if opts.residual_update else 0)
+    return WorkModel(
+        nnz_a=int(nnz_a), nnz_c=int(nnz_c),
+        nnz_factor=_factor_nnz(M), nnz_kp=int(M.kp.nnz),
+        solves_per_iter=float(per_direct_solves * (1 + outer)),
+        kp_spmv_per_iter=float(kp_spmv),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveProfile:
+    """Measured solve performance, the first call apart."""
+
+    method: str
+    niters: int
+    solved: bool
+    ptime: float            # preconditioner build (host factorization)
+    compile_time: float     # the first call: kernel build, first launches
+    stime: float            # warm solve wall clock (best of repeats)
+    iters_per_s: float
+    nnz_per_s: float        # work-model nnz / stime
+    work: WorkModel
+    # the last timed call's SolveOutput (not in the JAX package's profile)
+    output: object = dataclasses.field(default=None, repr=False,
+                                       compare=False)
+
+    def summary(self) -> str:
+        return (f"{self.method}: {self.niters} iters in {self.stime:.4f}s "
+                f"({self.iters_per_s:.1f} it/s, {self.nnz_per_s:.3g} nnz/s; "
+                f"compile {self.compile_time:.2f}s, "
+                f"precond build {self.ptime:.2f}s)")
+
+
+def _nnz(X) -> int:
+    import scipy.sparse as sp
+
+    if sp.issparse(X):
+        return int(X.nnz)
+    if isinstance(X, torch.Tensor):
+        return int(torch.count_nonzero(X))
+    if isinstance(X, np.ndarray):
+        return int(np.count_nonzero(X))
+    return 0                                # an operator: no stored entries
+
+
+def profile_solve(method, b, A, B, C, G, *, opts=None, precond_opts=None,
+                  repeats: int = 3, trace_dir: str | None = None,
+                  device=None, **solve_kwargs) -> SolveProfile:
+    """Profile ``cpkrylov_tpu_torch.solve`` on ``device`` (default the CUDA
+    card): build the preconditioner, make a first call, then time
+    ``repeats`` warm calls and keep the best.
+
+    ``compile_time`` is the first call's wall time: on the card it holds
+    the CUDA kernels' build (when the process has not built them yet) and
+    their first launches; on the CPU nothing is compiled, and it is one
+    more call.  When ``trace_dir`` is given, one traced call is written
+    there (:func:`trace`).  ``output`` holds the last timed call's
+    ``SolveOutput``."""
+    from ..driver import solve
+    from ..precond.cp import make_preconditioner
+    from .device import resolve_device
+    from .timing import sync
+
+    device = resolve_device(device)
+    dtype = solve_kwargs.get("dtype") or np.asarray(b).dtype
+    t0 = time.perf_counter()
+    M = make_preconditioner(G, B, C, options=precond_opts, dtype=dtype,
+                            device=device)
+    sync(device)
+    ptime = time.perf_counter() - t0
+
+    def call():
+        return solve(method, b, A, B, C, G, opts=opts,
+                     precond_opts=precond_opts, M=M, device=device,
+                     **solve_kwargs)
+
+    t0 = time.perf_counter()
+    call()
+    compile_time = time.perf_counter() - t0
+    best = float("inf")
+    for _ in range(max(1, repeats)):
+        t1 = time.perf_counter()
+        out = call()
+        best = min(best, time.perf_counter() - t1)
+    if trace_dir is not None:
+        with trace(trace_dir):
+            call()
+
+    work = work_model(M, _nnz(A), _nnz(C))
+    niters = int(out.niters)
+    return SolveProfile(
+        method=method if isinstance(method, str) else method.__name__,
+        niters=niters, solved=bool(out.solved), ptime=ptime,
+        compile_time=compile_time, stime=best,
+        iters_per_s=niters / best if best > 0 else float("inf"),
+        nnz_per_s=niters * work.nnz_per_iter / best if best > 0 else 0.0,
+        work=work, output=out,
+    )

@@ -39,11 +39,20 @@ before its last line:
    steps); the CSR SpMV (B5) on AUG2D-L's K_P and CVXQP3-L's A, f32 and
    f64, bit for bit against its plain version and against scipy, with its
    bound at both shapes; ``torch.sparse.mm`` timed beside B5 and B1;
+   blocked substitution (B9) on both triangles of CVXQP3-L's factor (69
+   panels, timed) and of cvxqp1_m's (22 panels), f64 and f32, against its
+   plain version and scipy's ``spsolve_triangular`` and bit for bit
+   against a second call, with its byte bound and its sequential stages;
+   the df64 triangle product (B10) on CVXQP3-L's two df64 triangles, bit
+   for bit against its plain version and a second call, timed (AUG2D-L's
+   are held in 17, where its f32 factor is built);
 6. golden: CPMINRES on the shipped ``cvxqp1_m`` fixture in f64 on the card,
-   53 +- 2 iterations and rel-err < 5e-6 against scipy ``spsolve``;
+   53 +- 2 iterations and rel-err < 5e-6 against scipy ``spsolve``, its
+   triangular solves in B9;
 7. golden_mixed: ``solve_mixed`` on ``cvxqp1_m`` with f32 inner solves to
-   1e-8, through the df64-applied factor, rel-err < 1e-7, <= 5 passes; run
-   twice, and the two runs' inner counts must agree (no atomics);
+   1e-8, through the df64-applied factor (B9 in f32 and B10), rel-err <
+   1e-7, <= 5 passes; run twice, and the two runs' inner counts must
+   agree (no atomics);
 8. main path: ``make_preconditioner`` + ``solve("cpminres", ...)`` in f64 on
    the card for ``banded_saddle_system(1_000_000, 250_000, bandwidth=3)``
    at rtol 1e-6, checked by a host f64 true residual and by the kernels'
@@ -105,16 +114,18 @@ path):
    ``benchmarks/MM_SWEEP_L.json`` (``solved``, iterations within
    max(2, 3 %), the error against scipy's ``spsolve`` within 1.1 x of the
    record's, exactly itmax iterations where unsolved), with its work-model
-   nnz/s and its B4/B6/B5 launches a solve; before its rows, each system's
-   B4/B6 triangles and B5 operands are held against their plain versions
-   at its own shapes, and a kernel a row launches must have been held;
+   nnz/s and its B4/B6/B9/B5 launches a solve; before its rows, each
+   system's B4/B6 or B9 triangles and B5 operands are held against their
+   plain versions at its own shapes, and a kernel a row launches must have
+   been held;
 17. mm_mixed: ``solve(..., dtype=torch.float32)`` on AUG2D-L and CVXQP3-L
    (the host outer loop, f32 preconditioners built from ``mm_setup``'s
    host LDL^T through the build probe and the df64 swap), solved to the
    f64 contract, within 10 x the f64 record's error, repeated bit for bit
-   by a second run, B4/B6 launched in f32 on AUG2D-L; one direct solve of
-   each f32 preconditioner profiled (the df64 triangle product's launches
-   and idle share);
+   by a second run, B4/B6 launched in f32 on AUG2D-L; before the solves,
+   B10 held bit for bit on both df64 triangles of each f32 factor (timed
+   on AUG2D-L's); one direct solve of each f32 preconditioner profiled
+   (its launches and idle share);
 18. operator_a: ``BASELINE.json`` configs[3], CVXQP3-L with A given only as
    a callable (B5 on the card) and two forced refinement steps, within
    +-1 iteration and 1.1 x the error of the explicit-A solve;
@@ -135,6 +146,14 @@ the device's busy time and idle share inside the solve span of each trace
 ``cpkrylov.mixed_loop``), and writes the main paths' traces (``profile_main.json``,
 ``profile_mixed.json``) and every run's per-op table (``.txt``) into DIR.
 
+On the card every blocked triangular solve is one B9 launch and every
+df64 triangle product one B10 launch: golden_mixed, mm_cvxqp3_l and
+mm_mixed count the calls of ``trisolve.block_tri_solve`` and
+``DFTriMat.matvec_df`` beside the launches and require them equal, and
+the kernels line requires B9 launches on golden, mm_cvxqp3_l, mm_sweep,
+operator_a and golden_solvers, and B10 on golden_mixed, mm_mixed and
+checkpoint.
+
 Then a JSON line of per-kernel results (time and device time, plain
 version's time, the bound from this run's shapes, the library call's time
 and device time where one exists, launches per path), the card line from ``nvidia-smi``, and as the last line
@@ -143,6 +162,7 @@ beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -178,6 +198,19 @@ BAND_TOL = {"float32": 1e-3, "float64": 2e-11}
 # f32 rounding of rows of at most 10 products (f64 is exact in principle;
 # the bound leaves room for one rounding per term).
 CSR_SCIPY_TOL = {"float32": 1e-6, "float64": 1e-14}
+
+# Blocked substitution (B9) on the factors of CVXQP3-L and cvxqp1_m:
+# relative 2-norm against its plain version (which sums in torch's order)
+# and against scipy's f64 ``spsolve_triangular``.  The factors carry
+# element growth (solutions up to ~1.5e9 for a unit right-hand side at
+# CVXQP3-L), which amplifies rounding.  On the H100 B9 measured 6.5e-16
+# (f64) and 4.9e-7 (f32) from its plain version at CVXQP3-L, 2.4e-15 and
+# 3.1e-7 from scipy; on the CPU the plain version and the JAX package's
+# loop, which differ only in summation order as B9 and its plain version
+# do, measure 5.3e-14 (f64) and 3.6e-5 (f32) apart on cvxqp1_m's upper
+# triangle.  Each bound is about 10x the larger of those readings.  B9
+# also repeats its bits from call to call.
+BLOCK_TOL = {"float32": 4e-4, "float64": 1e-12}
 
 # Bounds: the larger of bytes over the card's memory rate and operations
 # over its peak rate for their type.  3.35 TB/s and 67 TFLOP/s f32 outside
@@ -346,8 +379,8 @@ def phase_kernels(sysm, device, results):
                 print(f"kernel dia_spmv bound_ms={dia['bound_ms']:.4f} "
                       f"({dia['bound_by']}) library_ms(torch.sparse.mm)="
                       f"{dia['library_ms']:.4f} device_ms="
-                      f"{dia['device_ms']:.4f} library_device_ms="
-                      f"{dia['library_device_ms']:.4f}", flush=True)
+                      f"{_fmt(dia['device_ms'])} library_device_ms="
+                      f"{_fmt(dia['library_device_ms'])}", flush=True)
 
     scan = results["bidiag_scan"]
     for n in (1_250_000, 1_000_003):
@@ -426,8 +459,8 @@ def phase_kernels(sysm, device, results):
                 fdms = device_ms(floor, sets)
                 print(f"kernel bidiag_scan {tname} n={n} "
                       f"{'reverse' if reverse else 'forward'} "
-                      f"device_ms={dms:.4f} read_floor_ms={fms:.4f} "
-                      f"read_floor_device_ms={fdms:.4f} "
+                      f"device_ms={_fmt(dms)} read_floor_ms={fms:.4f} "
+                      f"read_floor_device_ms={_fmt(fdms)} "
                       f"device_ops_per_call={kernels_per_call:.2f} "
                       f"traced={[(k[:48], c) for k, (_, c) in traced.items()]}",
                       flush=True)
@@ -502,7 +535,7 @@ def phase_kernels(sysm, device, results):
             dfd["device_ms"] = device_ms(
                 lambda h, lo: df_dia_spmv(d, h, lo),
                 [(xh, xl), (xl, xh)])
-            print(f"kernel df_dia_spmv device_ms={dfd['device_ms']:.4f}",
+            print(f"kernel df_dia_spmv device_ms={_fmt(dfd['device_ms'])}",
                   flush=True)
 
     phase_riffle(sysm.n, sysm.m, device, results)
@@ -545,9 +578,16 @@ def device_ms(fn, operands, iters: int = 48) -> float:
     were made (on the H100, traces taken late in this script kept 4 to 9 of
     12 launches of the ms-long B4/B6 kernels, whose recorded durations match
     their event times): the mean over the launches it holds stands for
-    all, and a line says what was missing."""
+    all, and a line says what was missing.  None when the trace kept no
+    device record at all (seen on the H100 for a trace of 12 calls of a
+    1 ms kernel late in this script): not measured."""
+    traced = traced_kernels(fn, operands, iters)
+    if not traced:
+        print("device_ms: the trace kept no device record: not measured",
+              flush=True)
+        return None
     total = 0.0
-    for name, (mean, count) in traced_kernels(fn, operands, iters).items():
+    for name, (mean, count) in traced.items():
         per_call = max(1, round(count / iters))
         if count != per_call * iters:
             print(f"device_ms: the trace kept {count} of {per_call * iters} "
@@ -625,7 +665,7 @@ def phase_riffle(n, m, device, results):
                       f"tail={n - c * m} exact={exact[name]} ms={ms:.4f} "
                       f"plain_ms={pms:.4f} library_ms(torch.index_select)="
                       f"{lms:.4f} bound_ms={bms:.4f} ({by}) "
-                      f"device_ms={dms:.4f} library_device_ms={ldms:.4f}",
+                      f"device_ms={_fmt(dms)} library_device_ms={_fmt(ldms)}",
                       flush=True)
                 if not exact[name]:
                     raise RuntimeError(f"{name} {tname} c={c}: differs from "
@@ -759,7 +799,7 @@ def phase_mm_kernels(mm, device, results):
                   f"rel_err_vs_scipy_f64={err_ref:.3e} "
                   f"max_abs_err_vs_plain={err_abs:.3e} "
                   f"max_abs_x={np.max(np.abs(ref[label])):.3e} ms={ms:.4f} "
-                  f"plain_ms={pms:.4f} device_ms={dms:.4f} "
+                  f"plain_ms={pms:.4f} device_ms={_fmt(dms)} "
                   f"c_kernel_device_ms={c_ms:.4f} "
                   f"scan_kernel_device_ms={s_ms:.4f} scan_layout={lay} "
                   f"bytes_moved={moved} bytes_inv_and_W={mats} "
@@ -807,10 +847,11 @@ def phase_mm_kernels(mm, device, results):
                               [(wfull, c.T)], iters=12)
             print(f"kernel affine_scan {tname} {label} r={r} nb={nb} "
                   f"rel_err_vs_plain={serr:.3e} max_abs_err={serr_abs:.3e} "
-                  f"ms={sms:.4f} plain_ms={spms:.4f} device_ms={sdms:.4f} "
-                  f"read_floor_ms={fms:.4f} read_floor_device_ms={fdms:.4f} "
-                  f"read_floor_b4_scan_device_ms={fbdms:.4f} "
-                  f"read_floor_GBps={nb * r * r * item / fdms / 1e6:.1f} "
+                  f"ms={sms:.4f} plain_ms={spms:.4f} device_ms={_fmt(sdms)} "
+                  f"read_floor_ms={fms:.4f} read_floor_device_ms={_fmt(fdms)} "
+                  f"read_floor_b4_scan_device_ms={_fmt(fbdms)} "
+                  f"read_floor_GBps="
+                  f"{nb * r * r * item / (fdms or fms) / 1e6:.1f} "
                   f"scan_layout={scan_layout(r, r, dtype)} "
                   f"W_tail_GB={nb * r * r * item / 1e9:.4f}", flush=True)
             if not serr <= BAND_TOL[tname]:
@@ -885,14 +926,291 @@ def phase_mm_kernels(mm, device, results):
                 ldms = device_ms(lambda c_, s_, v: torch.sparse.mm(
                     s_, v[:, None]), sets)
                 print(f"kernel csr_spmv {tname} {label} bound_ms={bms:.4f} "
-                      f"({by}) device_ms={dms:.4f} library_device_ms="
-                      f"{ldms:.4f} operand_sets={copies}", flush=True)
+                      f"({by}) device_ms={_fmt(dms)} library_device_ms="
+                      f"{_fmt(ldms)} operand_sets={copies}", flush=True)
                 if label.startswith("K_P"):
                     csr.update(ms=ms, plain_ms=pms, library_ms=lms,
                                bound_ms=bms, bound_by=by, device_ms=dms,
                                library_device_ms=ldms)
                 del sets
             del c, sa
+    torch.cuda.empty_cache()
+    phase_block_kernels(mm, device, results)
+
+
+def phase_block_kernels(mm, device, results):
+    """B9 on both triangles of CVXQP3-L's factor (69 panels, timed) and of
+    cvxqp1_m's (22 panels, the golden paths'), f64 and f32, against its
+    plain version and scipy; B10 on CVXQP3-L's two df64 triangles (packed
+    from the same host factor as ``mm_mixed``'s f32 preconditioner packs
+    them), timed, bit for bit.  AUG2D-L's df64 triangles are held in
+    ``mm_mixed``, where its f32 factor is built."""
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.precond.cp import build_precond, factorize_kp
+    from cpkrylov_tpu_torch.precond.df_factor import _pack_df_tri
+    from cpkrylov_tpu_torch.precond.trisolve import BlockTriFactor
+    from cpkrylov_tpu_torch.utils.fixtures import load_fixture
+
+    blk = results["block_tri"]
+    _, hf, M, _ = mm["cvxqp3_l"]
+    fix = load_fixture("cvxqp1_m")
+    hf1 = factorize_kp(fix.G, fix.B, fix.C)
+    M1 = build_precond(hf1.fac, hf1.ksp, hf1.n, hf1.m,
+                       options=cpt.PrecondOptions(), panel=256,
+                       dtype=torch.float64, device=device,
+                       base_order=hf1.base_order)
+    for name, h, f in (("cvxqp3_l", hf, M.factor), ("cvxqp1_m", hf1,
+                                                     M1.factor)):
+        L1, U = triangles(h.fac, h.n + h.m)
+        for label, tf, T in (("L", f.tf1, L1), ("U", f.tf2, U)):
+            if not isinstance(tf, BlockTriFactor):
+                raise RuntimeError(f"{name} {label}: factor is "
+                                   f"{type(tf).__name__}, not blocked "
+                                   "substitution")
+            got = hold_block_tri(f"{name} {label}", tf, device, T=T,
+                                 timing=name == "cvxqp3_l")
+            blk["max_abs_err"] = max(blk["max_abs_err"],
+                                     got["float64"]["max_abs_err"])
+            if name == "cvxqp3_l" and label == "L":
+                blk.update(got["float64"], launches_per_call=1)
+        if name == "cvxqp3_l":
+            for tag, T in (("t1", L1), ("t2", U)):
+                t = _pack_df_tri(T, device)
+                hold_df_tri(f"{name} {tag}", t, device, timing=True)
+                del t
+        del L1, U
+        torch.cuda.empty_cache()
+
+
+def triangles(fac, N):
+    """(L + I, J U J): the lower matrices that a factor's tf1 and, on the
+    index reversal, its tf2 solve (and the df64 factor's t1 and t2 hold),
+    as scipy CSR."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    L1 = (fac.L + sp.identity(N, format="csc")).tocsr()
+    rev = np.arange(N - 1, -1, -1)
+    return L1, L1.T.tocsr()[rev][:, rev].tocsr()
+
+
+def _fmt(v) -> str:
+    """A measured number, or "not measured" for None."""
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def block_tri_bound(tf):
+    """(ms, "bytes" or "operations", bytes, off entries): the least time of
+    one B9 solve.  Bytes: the lower triangles of the panel inverses, each
+    off-panel entry once (value and int32 column), the row counts, b read
+    and x written.  Operations: a multiply and an add for each of those
+    matrix entries."""
+    import torch
+
+    item = tf.inv_diag.element_size()
+    p, nb = tf.panel, tf.nblocks
+    nnz = int(tf.off_counts.sum())
+    tri = nb * p * (p + 1) // 2
+    nbytes = item * tri + (item + 4) * nnz + 4 * nb * p + 2 * item * tf.n
+    tname = "float64" if tf.inv_diag.dtype == torch.float64 else "float32"
+    ms, by = bound_ms(nbytes, 2 * (tri + nnz), tname)
+    return ms, by, nbytes, nnz
+
+
+def df_tri_bound(t):
+    """(ms, "bytes" or "operations", bytes): the least time of one B10
+    product.  Bytes: 12 a slot (hi, lo, an int32 column), the x pair read
+    and the y pair written; operations: the chain's 28 roundings a slot
+    (two_prod 16, its error terms 4, two_sum 6, the lo sum 2)."""
+    K, n = (int(v) for v in t.hi.shape)
+    nbytes = 12 * K * n + 16 * n
+    ms, by = bound_ms(nbytes, 28 * K * n, "float32")
+    return ms, by, nbytes
+
+
+def _operand_sets(nbytes, copy, base):
+    """``base`` and copies of it (made by ``copy``), enough that the sets
+    exceed the 50 MB L2 together."""
+    return [base] + [copy() for _ in range(max(0, -(-60_000_000 // nbytes)
+                                               - 1))]
+
+
+def hold_block_tri(what, tf64, device, T=None, dtypes=None,
+                   timing=False) -> dict:
+    """B9 on one triangle (a ``BlockTriFactor`` in f64), in each of
+    ``dtypes`` (f64 and f32 unless given; the f32 factor holds the same
+    numbers rounded once, as an f32 build packs them): against its plain
+    version and, given the scipy matrix ``T``, scipy's f64
+    ``spsolve_triangular``, both to BLOCK_TOL, and bit for bit against a
+    second call.  With ``timing``: ``ms`` and ``plain_ms`` (CUDA events),
+    ``device_ms`` (profiler, the factor and copies of it rotated past the
+    L2), the bound.  Returns those readings by dtype name."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from cpkrylov_tpu_torch.precond.cuda_block_tri import block_tri
+    from cpkrylov_tpu_torch.precond.trisolve import block_tri_solve_plain
+    from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
+
+    rng = np.random.default_rng(17)
+    # f32-representable, so that both dtypes solve the same system
+    b64 = rng.standard_normal(tf64.n).astype(np.float32).astype(np.float64)
+    ref = None
+    if T is not None:
+        t0 = time.perf_counter()
+        ref = spla.spsolve_triangular(T, b64, lower=True)
+        ref_s = time.perf_counter() - t0
+    out = {}
+    for dtype in dtypes or (torch.float64, torch.float32):
+        tname = str(dtype).split(".")[1]
+        tf = tf64 if dtype == tf64.inv_diag.dtype else dataclasses.replace(
+            tf64, inv_diag=tf64.inv_diag.to(dtype),
+            off_data=tf64.off_data.to(dtype))
+        b = torch.as_tensor(b64).to(device=device, dtype=dtype)
+        x, x2 = block_tri(tf, b), block_tri(tf, b)
+        xp = block_tri_solve_plain(tf, b)
+        torch.cuda.synchronize()
+        repeat = torch.equal(x, x2)
+        err_abs = float(torch.max(torch.abs(x - xp)))
+        xk, xpn = x.double().cpu().numpy(), xp.double().cpu().numpy()
+        err_plain = rel_2norm(xk, xpn)
+        bms, by, nbytes, nnz = block_tri_bound(tf)
+        line = (f"kernel block_tri {tname} {what} n={tf.n} "
+                f"panel={tf.panel} nb={tf.nblocks} "
+                f"K={tf.off_data.shape[1]} off_entries={nnz} "
+                f"rel_err_vs_plain={err_plain:.3e} "
+                f"max_abs_err_vs_plain={err_abs:.3e} repeat_equal={repeat} "
+                f"bound_ms={bms:.4f} ({by}) bytes={nbytes} "
+                f"sequential_stages={2 * tf.nblocks}")
+        errs = [("plain", err_plain)]
+        if ref is not None:
+            err_ref = rel_2norm(xk, ref)
+            line += (f" rel_err_vs_scipy_f64={err_ref:.3e} "
+                     f"plain_rel_err_vs_scipy_f64={rel_2norm(xpn, ref):.3e} "
+                     f"max_abs_x={np.max(np.abs(ref)):.3e} "
+                     f"scipy_s={ref_s:.2f}")
+            errs.append(("scipy", err_ref))
+        got = dict(bound_ms=bms, bound_by=by, max_abs_err=err_abs)
+        if timing:
+            ms = cuda_time_ms(lambda: block_tri(tf, b), iters=50, warmup=3)
+            pms = cuda_time_ms(lambda: block_tri_solve_plain(tf, b),
+                               iters=5, warmup=1)
+            sets = _operand_sets(nbytes, lambda: (dataclasses.replace(
+                tf, inv_diag=tf.inv_diag.clone(),
+                off_data=tf.off_data.clone(), off_cols=tf.off_cols.clone(),
+                off_counts=tf.off_counts.clone()), torch.randn_like(b)),
+                (tf, b))
+            dms = device_ms(block_tri, sets, iters=48)
+            line += (f" ms={ms:.4f} plain_ms={pms:.4f} "
+                     f"device_ms={_fmt(dms)} launches_per_call=1 "
+                     f"operand_sets={len(sets)}")
+            got.update(ms=ms, plain_ms=pms, device_ms=dms)
+            del sets
+        print(line, flush=True)
+        out[tname] = got
+        if not repeat:
+            raise RuntimeError(f"block_tri {tname} {what}: a second call "
+                               "gave other bits")
+        for against, e in errs:
+            if not e <= BLOCK_TOL[tname]:
+                raise RuntimeError(f"block_tri {tname} {what}: error vs "
+                                   f"{against} {e:.3e} > {BLOCK_TOL[tname]}")
+    return out
+
+
+def hold_df_tri(what, t, device, timing=False) -> dict:
+    """B10 on one df64 triangle (``DFTriMat``): hi and lo bit for bit
+    against its plain version and a second call.  With ``timing``: ``ms``
+    and ``plain_ms`` (CUDA events), ``device_ms`` (profiler; the matrix
+    and copies of it rotated past the L2 where it is smaller), the bound.
+    Returns those readings."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cpkrylov_tpu_torch.precond.cuda_df_tri import df_tri_matvec
+    from cpkrylov_tpu_torch.precond.df_factor import df_tri_matvec_plain
+    from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
+
+    v = np.random.default_rng(19).standard_normal(t.n) * 10.0
+    xh = torch.as_tensor(v.astype(np.float32), device=device)
+    xl = torch.as_tensor((v - v.astype(np.float32)).astype(np.float32),
+                         device=device)
+    y, y2 = df_tri_matvec(t, (xh, xl)), df_tri_matvec(t, (xh, xl))
+    yp = df_tri_matvec_plain(t, (xh, xl))
+    torch.cuda.synchronize()
+    exact = torch.equal(y[0], yp[0]) and torch.equal(y[1], yp[1])
+    repeat = torch.equal(y[0], y2[0]) and torch.equal(y[1], y2[1])
+    err_abs = max(float(torch.max(torch.abs(y[0] - yp[0]))),
+                  float(torch.max(torch.abs(y[1] - yp[1]))))
+    bms, by, nbytes = df_tri_bound(t)
+    K, n = (int(d) for d in t.hi.shape)
+    line = (f"kernel df_tri_matvec float32 {what} K={K} n={n} slots={K * n} "
+            f"bitwise_vs_plain={exact} repeat_equal={repeat} "
+            f"max_abs_err_vs_plain={err_abs:.3e} bound_ms={bms:.4f} ({by}) "
+            f"bytes={nbytes}")
+    got = dict(bound_ms=bms, bound_by=by, max_abs_err=err_abs)
+    if timing:
+        ms = cuda_time_ms(lambda: df_tri_matvec(t, (xh, xl)), iters=20,
+                          warmup=2)
+        pms = cuda_time_ms(lambda: df_tri_matvec_plain(t, (xh, xl)),
+                           iters=2, warmup=1)
+        sets = _operand_sets(nbytes, lambda: (dataclasses.replace(
+            t, hi=t.hi.clone(), lo=t.lo.clone(), cols=t.cols.clone()),
+            torch.randn_like(xh), torch.zeros_like(xl)), (t, xh, xl))
+        dms = device_ms(lambda m, h, lo: df_tri_matvec(m, (h, lo)), sets,
+                        iters=48)
+        line += (f" ms={ms:.4f} plain_ms={pms:.4f} device_ms={_fmt(dms)} "
+                 f"launches_per_call=1 operand_sets={len(sets)}")
+        got.update(ms=ms, plain_ms=pms, device_ms=dms)
+        del sets
+    print(line, flush=True)
+    if not (exact and repeat):
+        raise RuntimeError(f"df_tri_matvec {what}: differs from its plain "
+                           "version or between calls")
+    return got
+
+
+@contextlib.contextmanager
+def counted_calls():
+    """Counts, while open, the blocked-substitution solves
+    (``trisolve.block_tri_solve``, which ``tri_solve`` calls) and the df64
+    triangle products (``DFTriMat.matvec_df``), whatever runs them: on
+    the card each must be one launch of B9 or B10 (``check_calls``)."""
+    from cpkrylov_tpu_torch.precond import df_factor, trisolve
+
+    calls = {"block_tri": 0, "df_tri_matvec": 0}
+    solve, product = trisolve.block_tri_solve, df_factor.DFTriMat.matvec_df
+
+    def count_solve(tf, b):
+        calls["block_tri"] += 1
+        return solve(tf, b)
+
+    def count_product(self, x):
+        calls["df_tri_matvec"] += 1
+        return product(self, x)
+
+    trisolve.block_tri_solve = count_solve
+    df_factor.DFTriMat.matvec_df = count_product
+    try:
+        yield calls
+    finally:
+        trisolve.block_tri_solve = solve
+        df_factor.DFTriMat.matvec_df = product
+
+
+def check_calls(what, calls, launches):
+    """Each blocked solve and df64 product of a run was one launch."""
+    for k, v in calls.items():
+        if launches[k] != v:
+            raise RuntimeError(f"{what}: {v} calls of {k} but "
+                               f"{launches[k]} launches")
 
 
 # scipy spsolve solutions of the Maros-Meszaros systems (the error
@@ -951,9 +1269,11 @@ def phase_mm_solve(name, sysm, M, setup, device):
 
     opts = cpt.SolverOptions(**MM_SOLVER)
     reset_launches()
-    out = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
-                    opts=opts, M=M, dtype=torch.float64, device=device)
+    with counted_calls() as calls:
+        out = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
+                        opts=opts, M=M, dtype=torch.float64, device=device)
     launches = launch_counts()
+    check_calls(name, calls, launches)
     x = out.x.cpu().numpy()
     bnorm = float(np.linalg.norm(sysm.b))
     rnorm = float(np.linalg.norm(sysm.b - sysm.K @ x))
@@ -1005,6 +1325,9 @@ def phase_mm_solve(name, sysm, M, setup, device):
     elif not all(isinstance(t, BlockTriFactor) for t in (f.tf1, f.tf2)):
         raise RuntimeError("cvxqp3_l: the factor is not blocked "
                            "substitution, as in the JAX package")
+    elif launches["block_tri"] < 2 * out.niters:
+        raise RuntimeError(f"cvxqp3_l: block_tri launched "
+                           f"{launches['block_tri']} times")
     if not err <= MM_ORACLE_SLACK * oracle_record:
         raise RuntimeError(f"{name}: error against spsolve {err:.4e}, the "
                            f"JAX record is {oracle_record:.4e}")
@@ -1171,22 +1494,30 @@ def phase_golden(device):
 
     import cpkrylov_tpu_torch as cpt
     from cpkrylov_tpu_torch.utils.fixtures import load_fixture
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
 
     fix = load_fixture("cvxqp1_m")
     popts = cpt.PrecondOptions(residual_update=True, nitref=1,
                                force_itref=True, itref_tol=1e-8)
+    reset_launches()
     out = cpt.solve("cpminres", fix.b, fix.A, fix.B, fix.C, fix.G,
                     device=device, dtype=torch.float64,
                     opts=cpt.SolverOptions(atol=1e-6, rtol=1e-6, itmax=500),
                     precond_opts=popts)
+    launches = launch_counts()
     x_ref = spla.spsolve(fix.K.tocsc(), fix.b)
     rel = float(np.linalg.norm(out.x.cpu().numpy() - x_ref)
                 / np.linalg.norm(x_ref))
     print(f"golden cvxqp1_m cpminres f64 solved={out.solved} "
           f"iters={out.niters} rel_err={rel:.3e} "
-          f"stime_s={out.stime:.4f}", flush=True)
+          f"stime_s={out.stime:.4f} launches={launches}", flush=True)
     if not (out.solved and abs(out.niters - 53) <= 2 and rel < 5e-6):
         raise RuntimeError("golden cvxqp1_m check failed")
+    if launches["block_tri"] < 2 * out.niters:
+        raise RuntimeError("golden: the triangular solves did not go "
+                           "through B9")
+    return launches
 
 
 def phase_golden_mixed(device):
@@ -1212,12 +1543,17 @@ def phase_golden_mixed(device):
     inner = []
     for run in (1, 2):
         reset_launches()
-        out = cpt.solve_mixed(
-            "cpminres", fix.b, fix.A, fix.B, fix.C, fix.G, M=M32,
-            device=device,
-            opts=cpt.SolverOptions(atol=1e-8, rtol=1e-8, itmax=500),
-            precond_opts=popts)
+        with counted_calls() as calls:
+            out = cpt.solve_mixed(
+                "cpminres", fix.b, fix.A, fix.B, fix.C, fix.G, M=M32,
+                device=device,
+                opts=cpt.SolverOptions(atol=1e-8, rtol=1e-8, itmax=500),
+                precond_opts=popts)
         launches = launch_counts()
+        check_calls("golden_mixed", calls, launches)
+        if launches["df_tri_matvec"] < 2 * out.niters:
+            raise RuntimeError("golden_mixed: the df64 triangle products "
+                               "did not go through B10")
         rel = float(np.linalg.norm(out.x - x_ref) / np.linalg.norm(x_ref))
         loop = "host" if out.inner_outputs else "device"
         print(f"golden_mixed cvxqp1_m cpminres f32-inner run={run} "
@@ -1913,7 +2249,9 @@ def _hold_sweep_kernels(prob, sysm, M, device):
     """The kernels of a sweep system's solves at its own shapes, each held
     against its plain version on the same inputs in f64 (the sweep's
     dtype): B4 and B6 on each triangle of ``M`` in the reduced-scan form
-    (to BAND_TOL; B6 alone on the triangle's scan operands), and B5 on A,
+    (to BAND_TOL; B6 alone on the triangle's scan operands), B9 on each
+    triangle in blocked substitution (to BLOCK_TOL, and bit for bit
+    against a second call), and B5 on A,
     B (both directions) and a CSR K_P, bit for bit and repeatable.  Returns
     the names of the kernels held."""
     import numpy as np
@@ -1927,7 +2265,8 @@ def _hold_sweep_kernels(prob, sysm, M, device):
                                                      band_tri_solve,
                                                      band_tri_solve_plain,
                                                      scan_layout)
-    from cpkrylov_tpu_torch.precond.trisolve import ReducedScanTriFactor
+    from cpkrylov_tpu_torch.precond.trisolve import (BlockTriFactor,
+                                                     ReducedScanTriFactor)
 
     f64 = torch.float64
     rng = np.random.default_rng(13)
@@ -1964,6 +2303,11 @@ def _hold_sweep_kernels(prob, sysm, M, device):
             raise RuntimeError(f"mm_sweep {prob} {label}: B4 or B6 differs "
                                "from its plain version")
         held |= {"band_tri", "affine_scan"}
+    for label, tf in (("L", M.factor.tf1), ("U", M.factor.tf2)):
+        if isinstance(tf, BlockTriFactor):
+            hold_block_tri(f"mm_sweep {prob} {label}", tf, device,
+                           dtypes=(f64,))
+            held.add("block_tri")
     mats = [("A", csr_from_scipy(sysm.A, f64, device)),
             ("B", csr_from_scipy(sysm.B, f64, device))]
     if isinstance(M.kp, CSR):
@@ -2068,10 +2412,12 @@ def phase_mm_sweep(mm, device, full: bool, card: str):
                   f"nnz_per_iter={work.nnz_per_iter:.6g} "
                   f"band_tri={per_solve['band_tri']:.1f} "
                   f"affine_scan={per_solve['affine_scan']:.1f} "
+                  f"block_tri={per_solve['block_tri']:.1f} "
                   f"csr_spmv={per_solve['csr_spmv']:.1f} (a solve) "
                   f"card=\"{card}\"", flush=True)
             _sweep_check(rec, solver, out, err)
-            unheld = [k for k in ("band_tri", "affine_scan", "csr_spmv")
+            unheld = [k for k in ("band_tri", "affine_scan", "block_tri",
+                                  "csr_spmv")
                       if launches[k] and k not in held]
             if unheld:
                 raise RuntimeError(f"mm_sweep {prob} {solver}: {unheld} "
@@ -2106,7 +2452,7 @@ def _profile_once(fn, span: str):
     return device_profile(run, span=span), res[0]
 
 
-def phase_mm_mixed(mm, device, card: str):
+def phase_mm_mixed(mm, device, card: str, results):
     """ROADMAP A.2 on the card: ``solve(..., dtype=torch.float32)`` of
     AUG2D-L and CVXQP3-L with CPMINRES, to atol = rtol = 1e-6 on the f64
     true residual.  The f32 preconditioner comes from ``mm_setup``'s host
@@ -2118,7 +2464,9 @@ def phase_mm_mixed(mm, device, card: str):
     (about 45 s of df64 triangle products) goes through its reloaded
     preconditioner.  One direct solve of each f32 preconditioner is
     profiled: the df64 triangle product's launches and the device's idle
-    share.  Returns (launches of the first runs, {name: (M32, first
+    share.  Before the solves, B10 is held bit for bit on each f32
+    factor's two df64 triangles (timed on AUG2D-L's, the kernels line's
+    entry).  Returns (launches of the first runs, {name: (M32, first
     run's output)})."""
     import numpy as np
     import torch
@@ -2126,12 +2474,14 @@ def phase_mm_mixed(mm, device, card: str):
     import cpkrylov_tpu_torch as cpt
     from cpkrylov_tpu_torch.precond import ldl_host
     from cpkrylov_tpu_torch.precond.cp import build_precond
+    from cpkrylov_tpu_torch.precond.df_factor import DFFactorApply
     from cpkrylov_tpu_torch.precond.trisolve import ReducedScanTriFactor
     from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
                                                     reset_launches)
 
     opts = cpt.SolverOptions(**MM_SOLVER)
     total, kept = {}, {}
+    dft = results["df_tri_matvec"]
     for name in ("aug2d_l", "cvxqp3_l"):
         sysm, hf, _, _ = mm[name]
         t0 = time.perf_counter()
@@ -2158,15 +2508,27 @@ def phase_mm_mixed(mm, device, card: str):
               f"df64_ell_slots={None if t1 is None else t1.hi.shape[0]} "
               f"build_s={build_s:.2f} device_gib="
               f"{torch.cuda.memory_allocated() / 2**30:.2f}", flush=True)
+        if not isinstance(f, DFFactorApply):
+            raise RuntimeError(f"mm_mixed {name}: the df64-applied factor "
+                               "is not engaged")
+        for tag, t in (("t1", f.t1), ("t2", f.t2)):
+            got = hold_df_tri(f"mm_mixed {name} {tag}", t, device,
+                              timing=name == "aug2d_l")
+            dft["max_abs_err"] = max(dft["max_abs_err"], got["max_abs_err"])
+            if name == "aug2d_l" and tag == "t1":
+                dft.update(got, launches_per_call=1)
+        torch.cuda.empty_cache()
         x_direct, _ = oracle(name)
         bnorm = float(np.linalg.norm(sysm.b))
         contract = MM_SOLVER["atol"] + MM_SOLVER["rtol"] * bnorm
 
         reset_launches()
-        out = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
-                        opts=opts, M=M32, dtype=torch.float32,
-                        device=device)
+        with counted_calls() as calls:
+            out = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C,
+                            sysm.G, opts=opts, M=M32, dtype=torch.float32,
+                            device=device)
         launches = launch_counts()
+        check_calls(f"mm_mixed {name}", calls, launches)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         x = out.x.cpu().numpy()
@@ -2196,6 +2558,10 @@ def phase_mm_mixed(mm, device, card: str):
                          launch_counts())
         if launches["csr_spmv"] == 0:
             raise RuntimeError(f"mm_mixed {name}: no B5 launch")
+        if launches["df_tri_matvec"] < 2 * out.niters:
+            raise RuntimeError(f"mm_mixed {name}: the df64 triangle "
+                               f"products did not go through B10 "
+                               f"({launches})")
         if name == "aug2d_l":
             f32_band = all(isinstance(t, ReducedScanTriFactor)
                            and t.inv_diag.dtype == torch.float32
@@ -2204,22 +2570,30 @@ def phase_mm_mixed(mm, device, card: str):
                     and launches["affine_scan"] >= 2 * out.niters):
                 raise RuntimeError(f"mm_mixed aug2d_l: B4/B6 not launched "
                                    f"in f32 ({launches})")
-        # one direct solve of the f32 preconditioner, profiled
+        # direct solves of the f32 preconditioner, profiled: ten in one
+        # span (a trace may lose its first few device records, which would
+        # be all of one ~5 ms solve), reported a solve
         z = torch.as_tensor(np.random.default_rng(0).standard_normal(
             sysm.n + sysm.m), dtype=torch.float32, device=device)
         M32._direct_solve(z)
         reset_launches()
-        prof, _ = _profile_once(lambda: M32._direct_solve(z),
-                                "cpkrylov.direct_solve")
-        counts = launch_counts()
-        print(f"mm_mixed {name} one direct solve (f32, df64-applied) "
-              f"span_wall_ms={prof.wall_ms:.3f} "
-              f"device_busy_ms={prof.busy_ms:.3f} "
+        reps = 10
+        prof, _ = _profile_once(
+            lambda: [M32._direct_solve(z) for _ in range(reps)],
+            "cpkrylov.direct_solve")
+        counts = {k: v / reps for k, v in launch_counts().items()}
+        print(f"mm_mixed {name} a direct solve (f32, df64-applied; mean of "
+              f"{reps} in one span) span_wall_ms={prof.wall_ms / reps:.3f} "
+              f"device_busy_ms={prof.busy_ms / reps:.3f} "
               f"idle_share={prof.idle_share:.4f} "
-              f"launches={prof.launches} device_ops={prof.device_ops} "
-              f"band_tri={counts['band_tri']} "
-              f"affine_scan={counts['affine_scan']} "
-              f"csr_spmv={counts['csr_spmv']}", flush=True)
+              f"launches={prof.launches / reps:.1f} "
+              f"device_ops={prof.device_ops / reps:.1f} "
+              f"band_tri={counts['band_tri']:.0f} "
+              f"affine_scan={counts['affine_scan']:.0f} "
+              f"block_tri={counts['block_tri']:.0f} "
+              f"df_tri_matvec={counts['df_tri_matvec']:.0f} "
+              f"csr_spmv={counts['csr_spmv']:.0f} card=\"{card}\"",
+              flush=True)
         kept[name] = (M32, out, launches)
         torch.cuda.empty_cache()
     return total, kept
@@ -2480,13 +2854,14 @@ def kernel_entry(name: str, source: str, replaces: str) -> dict:
             "replaces": replaces, "max_abs_err": 0.0, "library_ms": None}
 
 
-def phase_profile_mm(mm, device, outdir):
+def phase_profile_mm(mm, kept, device, outdir):
     """With ``--profile``: one profiled run of the sweep's CPMINRES rows on
-    CVXQP1-L and CVXQP2-L and of the operator-only A: span wall, device
-    busy time, idle share and launches an iteration, and the per-op
-    tables (``.txt``) in DIR.  The mixed solves are not traced whole (one
-    of AUG2D-L holds about 1.2M launches, and reading its trace takes
-    minutes): ``mm_mixed`` profiles one direct solve of each."""
+    CVXQP1-L and CVXQP2-L, of the operator-only A, of the whole mixed f32
+    solves of AUG2D-L and CVXQP3-L (``mm_mixed``'s preconditioners) and of
+    ``golden_mixed``'s solve: span wall, device busy time, idle share and
+    launches an iteration, and the per-op tables (``.txt``) in DIR.  (Before
+    B9 and B10 a mixed AUG2D-L solve held about 1.2M launches, too many
+    to trace; ``mm_mixed`` still profiles one direct solve of each.)"""
     import dataclasses
 
     import torch
@@ -2494,7 +2869,8 @@ def phase_profile_mm(mm, device, outdir):
     import cpkrylov_tpu_torch as cpt
     from cpkrylov_tpu_torch.ops import spmv
     from cpkrylov_tpu_torch.ops.formats import csr_from_scipy
-    from cpkrylov_tpu_torch.utils.profiling import (SOLVE_SPAN,
+    from cpkrylov_tpu_torch.utils.fixtures import load_fixture
+    from cpkrylov_tpu_torch.utils.profiling import (MIXED_SPAN, SOLVE_SPAN,
                                                     device_profile)
 
     os.makedirs(outdir, exist_ok=True)
@@ -2516,8 +2892,23 @@ def phase_profile_mm(mm, device, outdir):
         "cpminres", sysm.b, A_op, sysm.B, sysm.C, sysm.G, M=Mo,
         device=device, dtype=torch.float64,
         opts=cpt.SolverOptions(**MM_SOLVER)))
+    for name in ("aug2d_l", "cvxqp3_l"):
+        msys, M32 = mm[name][0], kept[name][0]
+        runs["mm_mixed_" + name] = (
+            MIXED_SPAN, lambda s=msys, M32=M32: cpt.solve_mixed(
+                "cpminres", s.b, s.A, s.B, s.C, s.G, M=M32, device=device,
+                opts=cpt.SolverOptions(**MM_SOLVER)))
+    fix = load_fixture("cvxqp1_m")
+    popts = cpt.PrecondOptions(residual_update=True, nitref=1,
+                               force_itref=True)
+    Mg = cpt.make_preconditioner(fix.G, fix.B, fix.C, options=popts,
+                                 dtype=torch.float32, device=device)
+    runs["golden_mixed"] = (MIXED_SPAN, lambda: cpt.solve_mixed(
+        "cpminres", fix.b, fix.A, fix.B, fix.C, fix.G, M=Mg, device=device,
+        opts=cpt.SolverOptions(atol=1e-8, rtol=1e-8, itmax=500),
+        precond_opts=popts))
     for name, (span, fn) in runs.items():
-        fn()                                   # warm
+        warm = fn()                 # warm; its stime is unprofiled
         outs = []
         prof = device_profile(lambda: outs.append(fn()), span=span)
         with open(os.path.join(outdir, f"profile_{name}.txt"), "w") as fh:
@@ -2528,7 +2919,9 @@ def phase_profile_mm(mm, device, outdir):
               f"device_busy_ms={prof.busy_ms:.4f} "
               f"idle_share={prof.idle_share:.4f} "
               f"device_ops={prof.device_ops} launches={prof.launches} "
-              f"launches_per_iter={prof.launches / iters:.1f}", flush=True)
+              f"launches_per_iter={prof.launches / iters:.1f} "
+              f"stime_s={outs[0].stime:.4f} "
+              f"warm_stime_s={warm.stime:.4f}", flush=True)
         if prof.device_ops == 0:
             raise RuntimeError(f"the profiled {name} run shows no device "
                                "activity")
@@ -2570,6 +2963,12 @@ def run_phases(device, profile_dir=None, full_sweep=False) -> list:
         "uninterleave": kernel_entry(
             "uninterleave", "interleave.cu",
             "cpkrylov_tpu/precond/pallas_interleave.py:32"),
+        "block_tri": kernel_entry(
+            "block_tri", "block_tri.cu",
+            "cpkrylov_tpu/precond/trisolve.py:156 (XLA loop)"),
+        "df_tri_matvec": kernel_entry(
+            "df_tri_matvec", "df_tri_matvec.cu",
+            "cpkrylov_tpu/precond/df_factor.py:67 (XLA loop)"),
     }
     t0 = time.perf_counter()
     sysm = fixtures.banded_saddle_system(1_000_000, 250_000, bandwidth=3)
@@ -2582,9 +2981,9 @@ def run_phases(device, profile_dir=None, full_sweep=False) -> list:
     # the golden solve first among the solves: it also brings up the
     # libraries (cuBLAS for the dot products) that a process's first solve
     # initializes
-    _timed("golden", phase_golden, device)
-    by_path = {"golden_mixed": _timed("golden_mixed", phase_golden_mixed,
-                                      device)}
+    by_path = {"golden": _timed("golden", phase_golden, device)}
+    by_path["golden_mixed"] = _timed("golden_mixed", phase_golden_mixed,
+                                     device)
     by_path["main_path"], M = _timed("main_path", phase_main_path, sysm,
                                      device)
     by_path["main_mixed"], M32 = _timed("main_mixed", phase_main_mixed,
@@ -2599,7 +2998,7 @@ def run_phases(device, profile_dir=None, full_sweep=False) -> list:
     by_path["mm_sweep"] = _timed("mm_sweep", phase_mm_sweep, mm, device,
                                  full_sweep, card)
     by_path["mm_mixed"], kept = _timed("mm_mixed", phase_mm_mixed, mm,
-                                       device, card)
+                                       device, card, results)
     by_path["operator_a"] = _timed("operator_a", phase_operator_a, mm,
                                    device, card)
     by_path["checkpoint"] = _timed("checkpoint", phase_checkpoint, mm, kept,
@@ -2607,7 +3006,7 @@ def run_phases(device, profile_dir=None, full_sweep=False) -> list:
     by_path["subsystems"] = _timed("subsystems", phase_subsystems, mm,
                                    device, card)
     if profile_dir:
-        phase_profile_mm(mm, device, profile_dir)
+        phase_profile_mm(mm, kept, device, profile_dir)
     del kept
     torch.cuda.empty_cache()
     by_path["golden_solvers"] = _timed("golden_solvers",
@@ -2617,10 +3016,14 @@ def run_phases(device, profile_dir=None, full_sweep=False) -> list:
         _timed("profile", phase_profile, sysm, device, M, M32, mm,
                profile_dir)
 
+    # the paths each of B9 and B10 must carry (by_path's keys)
+    need = {"block_tri": ("golden", "cvxqp3_l", "mm_sweep", "operator_a",
+                          "golden_solvers"),
+            "df_tri_matvec": ("golden_mixed", "mm_mixed", "checkpoint")}
     kernels = []
     for name, res in results.items():
         entry = dict(res)
-        counts = {p: c[name] for p, c in by_path.items()}
+        counts = {p: c.get(name, 0) for p, c in by_path.items()}
         entry["launches"] = sum(counts.values())
         entry["launches_by_path"] = counts
         if entry["launches"] == 0:
@@ -2629,6 +3032,9 @@ def run_phases(device, profile_dir=None, full_sweep=False) -> list:
                 counts[p] > 0 for p in ("main_path", "main_mixed",
                                         "solvers_banded")):
             raise RuntimeError(f"{name} missing on a banded path: {counts}")
+        if not all(counts[p] > 0 for p in need.get(name, ())):
+            raise RuntimeError(f"{name} missing on one of {need[name]}: "
+                               f"{counts}")
         kernels.append({k: entry[k] for k in (
             "name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_per_call", "max_abs_err", "ms",

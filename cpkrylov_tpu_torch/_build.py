@@ -89,6 +89,14 @@ _KERNEL_SIGNATURES = {
     # src, dst, n, m, c, itemsize (4 or 8), stream
     "cpkt_interleave": (_P, _P, _I64, _I64, _I64, _I32, _P),
     "cpkt_uninterleave": (_P, _P, _I64, _I64, _I64, _I32, _P),
+    # B9: inv, off_data, off_cols (int32), off_counts (int32), b, x (nb*p),
+    # n, p, nb, K, stream
+    "cpkt_block_tri_f32": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32,
+                           _P),
+    "cpkt_block_tri_f64": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32,
+                           _P),
+    # B10: hi, lo, cols (int32), K, n, xh, xl, yh, yl, stream
+    "cpkt_df_tri_matvec_f32": (_P, _P, _P, _I32, _I64, _P, _P, _P, _P, _P),
 }
 
 

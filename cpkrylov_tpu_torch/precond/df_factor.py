@@ -38,27 +38,38 @@ class DFTriMat:
     """Triangular matrix in (K, n) transposed-ELL form with df64 values.
 
     The df64 matvec walks the K ELL slots with a compensated (two_sum
-    chained) accumulator, so each row's sum errs by O(eps^2) whatever K;
-    each slot is one gather of x (plain PyTorch: no TPU kernel serves it)."""
+    chained) accumulator, so each row's sum errs by O(eps^2) whatever K.
+    On a CUDA tensor it is one launch of the hand-written kernel B10
+    (``cuda_df_tri.py``), else the plain slot loop
+    (``df_tri_matvec_plain``); the two agree bit for bit."""
 
     hi: torch.Tensor     # (K, n) f32
     lo: torch.Tensor     # (K, n) f32
-    cols: torch.Tensor   # (K, n) int64 column index into x; 0 where empty
+    cols: torch.Tensor   # (K, n) int32 column index into x; 0 where empty
     n: int
 
     def matvec_df(self, x: df64.DF) -> df64.DF:
-        xh, xl = x
-        acc_h = torch.zeros(self.n, dtype=xh.dtype, device=xh.device)
-        acc_l = torch.zeros(self.n, dtype=xh.dtype, device=xh.device)
-        for k in range(self.hi.shape[0]):
-            c = self.cols[k]
-            vh, vl = xh[c], xl[c]
-            dh, dl = self.hi[k], self.lo[k]
-            p, e = df64.two_prod(dh, vh)
-            e = e + dh * vl + dl * vh
-            acc_h, e2 = df64.two_sum(acc_h, p)
-            acc_l = acc_l + (e + e2)
-        return df64.quick_two_sum(acc_h, acc_l)
+        from .cuda_df_tri import df_tri_matvec
+
+        return df_tri_matvec(self, x)
+
+
+def df_tri_matvec_plain(t: DFTriMat, x: df64.DF) -> df64.DF:
+    """Plain version of the df64 product (df_factor.py:67-84 of the JAX
+    package): one gather of x and one step of the compensated chain per
+    ELL slot, every slot of every row, each operation rounded on its own."""
+    xh, xl = x
+    acc_h = torch.zeros(t.n, dtype=xh.dtype, device=xh.device)
+    acc_l = torch.zeros(t.n, dtype=xh.dtype, device=xh.device)
+    for k in range(t.hi.shape[0]):
+        c = t.cols[k].long()
+        vh, vl = xh[c], xl[c]
+        dh, dl = t.hi[k], t.lo[k]
+        p, e = df64.two_prod(dh, vh)
+        e = e + dh * vl + dl * vh
+        acc_h, e2 = df64.two_sum(acc_h, p)
+        acc_l = acc_l + (e + e2)
+    return df64.quick_two_sum(acc_h, acc_l)
 
 
 def _pack_df_tri(T, device) -> DFTriMat:
@@ -69,8 +80,11 @@ def _pack_df_tri(T, device) -> DFTriMat:
     n = T.shape[0]
     counts = np.diff(T.indptr)
     K = max(1, int(counts.max()) if counts.size and T.nnz else 1)
+    if n >= 1 << 31:
+        raise ValueError(f"the df64 product indexes with int32: n = {n} >= "
+                         "2**31")
     data = np.zeros((n, K), np.float64)
-    cols = np.zeros((n, K), np.int64)
+    cols = np.zeros((n, K), np.int32)
     if T.nnz:
         offs = np.arange(T.nnz) - np.repeat(T.indptr[:-1], counts)
         rr = np.repeat(np.arange(n), counts)

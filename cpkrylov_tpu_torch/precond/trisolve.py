@@ -12,7 +12,9 @@ solve is the sequential loop
 
     x[blk] = inv_diag[blk] @ (b[blk] - L_off[blk, :] @ x)
 
-over ``n / panel`` panels.
+over ``n / panel`` panels.  On a CUDA tensor it runs as one launch of the
+hand-written kernel B9 (``cuda_block_tri.py``), which walks the panels
+itself; ``block_tri_solve_plain`` is the plain PyTorch loop.
 
 *Reduced-state scan* (``ReducedScanTriFactor``) serves a factor whose
 subdiagonal reach r is at most the panel p.  Panel i only reads the last r
@@ -41,7 +43,9 @@ class BlockTriFactor:
 
     inv_diag: torch.Tensor  # (nblocks, panel, panel) dense inverses
     off_data: torch.Tensor  # (n_pad, K) entries strictly left of the panel
-    off_cols: torch.Tensor  # (n_pad, K) int64
+    off_cols: torch.Tensor  # (n_pad, K) int32 (n_pad < 2**31); 0 when empty
+    off_counts: torch.Tensor  # (n_pad,) int32: a row's entries, in its
+    #                           first off_counts[r] slots
     n: int
     panel: int
 
@@ -126,8 +130,11 @@ def build_block_tri(T, dtype: torch.dtype, device,
     starts = np.zeros(n_pad + 1, np.int64)
     np.cumsum(counts, out=starts[1:])
     pos = np.arange(orow.size) - starts[orow[order]]
+    if n_pad >= 1 << 31:
+        raise ValueError(f"blocked substitution indexes with int32: n_pad "
+                         f"= {n_pad} >= 2**31")
     off_data = np.zeros((n_pad, max_off), dtype=np.float64)
-    off_cols = np.zeros((n_pad, max_off), dtype=np.int64)
+    off_cols = np.zeros((n_pad, max_off), dtype=np.int32)
     off_data[orow[order], pos] = oval[order]
     off_cols[orow[order], pos] = ocol[order]
 
@@ -137,11 +144,15 @@ def build_block_tri(T, dtype: torch.dtype, device,
     return BlockTriFactor(
         inv_diag=dev(inv_diag), off_data=dev(off_data),
         off_cols=torch.as_tensor(off_cols, device=device),
+        off_counts=torch.as_tensor(counts.astype(np.int32), device=device),
         n=int(n), panel=int(panel))
 
 
-def block_tri_solve(tf: BlockTriFactor, b: torch.Tensor) -> torch.Tensor:
-    """Solve T x = b for the prepared lower-triangular factor."""
+def block_tri_solve_plain(tf: BlockTriFactor,
+                          b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of blocked substitution (trisolve.py:156-175
+    of the JAX package): one panel after another, each a gather of x over
+    the whole ELL row (padding included) and a dense panel product."""
     panel = tf.panel
     n_pad = tf.nblocks * panel
     x = torch.zeros(n_pad, dtype=b.dtype, device=b.device)
@@ -152,11 +163,19 @@ def block_tri_solve(tf: BlockTriFactor, b: torch.Tensor) -> torch.Tensor:
     for i in range(tf.nblocks):
         r0 = i * panel
         od = od_all[r0: r0 + panel]
-        oc = tf.off_cols[r0: r0 + panel]
+        oc = tf.off_cols[r0: r0 + panel].long()
         contrib = (od * x[oc]).sum(dim=1)
         rhs = b_pad[r0: r0 + panel] - contrib
         x[r0: r0 + panel] = inv_all[i] @ rhs
     return x[: tf.n]
+
+
+def block_tri_solve(tf: BlockTriFactor, b: torch.Tensor) -> torch.Tensor:
+    """Solve T x = b for the prepared lower-triangular factor: kernel B9
+    for a CUDA tensor, else the plain version (``cuda_block_tri``)."""
+    from .cuda_block_tri import block_tri
+
+    return block_tri(tf, b)
 
 
 @dataclasses.dataclass(frozen=True)

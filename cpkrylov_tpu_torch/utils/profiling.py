@@ -20,7 +20,7 @@ warm repeats) and reports iterations/s and work-model nnz/s.  The work
 model counts entries, not bytes: it implies no bandwidth.
 
 :func:`launch_counts` reads the ``LAUNCHES`` counters of the hand-written
-kernels B1-B8 (each wrapper adds one where it launches its kernel, and
+kernels B1-B10 (each wrapper adds one where it launches its kernel, and
 nowhere else), and :func:`reset_launches` sets them to 0, so a run can show
 which kernels carried it.
 """
@@ -41,7 +41,7 @@ SOLVE_SPAN = "cpkrylov.solve"   # record_function span around the iteration
 MIXED_SPAN = "cpkrylov.solve_mixed"   # ... around a whole mixed solve
 MIXED_LOOP_SPAN = "cpkrylov.mixed_loop"   # ... around its device loop
 
-# kernel name -> (wrapper module, its counter): B1-B8
+# kernel name -> (wrapper module, its counter): B1-B10
 KERNEL_COUNTERS = {
     "dia_spmv": ("cpkrylov_tpu_torch.ops.cuda_dia", "LAUNCHES"),
     "bidiag_scan": ("cpkrylov_tpu_torch.precond.cuda_bidiag", "LAUNCHES"),
@@ -52,6 +52,8 @@ KERNEL_COUNTERS = {
     "interleave": ("cpkrylov_tpu_torch.precond.cuda_interleave", "LAUNCHES"),
     "uninterleave": ("cpkrylov_tpu_torch.precond.cuda_interleave",
                      "INV_LAUNCHES"),
+    "block_tri": ("cpkrylov_tpu_torch.precond.cuda_block_tri", "LAUNCHES"),
+    "df_tri_matvec": ("cpkrylov_tpu_torch.precond.cuda_df_tri", "LAUNCHES"),
 }
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

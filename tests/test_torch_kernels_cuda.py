@@ -23,6 +23,11 @@ f32 1e-4 and f64 1e-12; the CPU plain version measures 5e-8 and 2.2e-16
 there).  The CSR kernel (B5) sums each row in stored order, every step
 rounded, so it must equal its plain version exactly.  The interleave riffle
 (B7) and its inverse (B8) move entries without arithmetic: exact.
+Blocked substitution (B9) sums each row and each panel product in a fixed
+order of its own: held to BAND_TOL against its plain version and scipy on
+the factor of ``cvxqp_kkt("cvxqp3", 2000)``, and bit for bit against a
+second call.  The df64 triangle product (B10) rounds every step of its
+chain explicitly: hi and lo equal its plain version's exactly.
 """
 import numpy as np
 import pytest
@@ -642,6 +647,8 @@ def test_mm_path_goes_through_kernels(cuda, system):
     if system == "aug2d_40":
         assert counts["band_tri"] >= 2 * out.niters
         assert counts["affine_scan"] >= 2 * out.niters
+    else:
+        assert counts["block_tri"] >= 2 * out.niters
     # CPMINRES stops on the preconditioned residual: both packages end at
     # 0.1115 and 1.2872 times atol + rtol |b| on the CPU
     # (tests/test_torch_mm.py); the card may sum its dot products in
@@ -650,6 +657,183 @@ def test_mm_path_goes_through_kernels(cuda, system):
     contract = 1e-6 + 1e-6 * np.linalg.norm(s.b)
     limit = 0.12 if system == "aug2d_40" else 1.35
     assert np.linalg.norm(s.b - s.K @ x) <= limit * contract
+
+
+# ---------------------------------------------------------------------------
+# Blocked substitution (B9) and the df64 triangle product (B10)
+# ---------------------------------------------------------------------------
+
+def _cvxqp3_2000_triangles():
+    """(L + I, J U J) of the host LDL^T of ``cvxqp_kkt("cvxqp3", 2000)``:
+    14 panels of 256 rows, ELL widths 229 and 118, solutions up to ~6e8
+    for a unit right-hand side."""
+    from cpkrylov_tpu_torch.precond.cp import factorize_kp
+    from cpkrylov_tpu_torch.utils.mm import cvxqp_kkt
+
+    s = cvxqp_kkt("cvxqp3", 2000)
+    hf = factorize_kp(s.G, s.B, s.C)
+    N = hf.n + hf.m
+    L1 = (hf.fac.L + sp.identity(N, format="csc")).tocsr()
+    rev = np.arange(N - 1, -1, -1)
+    return {"L": L1, "U": L1.T.tocsr()[rev][:, rev].tocsr()}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_block_tri_kernel_matches_plain_and_scipy(cuda, dtype):
+    """B9 sums in its own fixed order: to BAND_TOL of its plain version and
+    of scipy (the CPU plain version measures 3.8e-14 / 2.4e-6 against
+    scipy here), and bit for bit against a second call."""
+    from cpkrylov_tpu_torch.precond import cuda_block_tri
+    from cpkrylov_tpu_torch.precond.trisolve import (block_tri_solve_plain,
+                                                     build_block_tri)
+
+    rng = np.random.default_rng(21)
+    for label, T in _cvxqp3_2000_triangles().items():
+        tf = build_block_tri(T, dtype, cuda)
+        b64 = rng.standard_normal(T.shape[0])
+        b = torch.as_tensor(b64).to(device=cuda, dtype=dtype)
+        before = cuda_block_tri.LAUNCHES
+        x = cuda_block_tri.block_tri(tf, b)
+        x2 = cuda_block_tri.block_tri(tf, b)
+        assert cuda_block_tri.LAUNCHES == before + 2
+        xp = block_tri_solve_plain(tf, b)
+        torch.cuda.synchronize()
+        assert x.dtype == dtype and torch.equal(x, x2), label
+        assert _rel2(x, xp) <= BAND_TOL[dtype], label
+        ref = spla.spsolve_triangular(
+            T, b.double().cpu().numpy(), lower=True)
+        assert _rel2(x, ref) <= BAND_TOL[dtype], label
+
+
+def test_block_tri_kernel_small_panels_and_ragged_n(cuda):
+    """Panels below a row a block (p = 4: blocks of the cluster without a
+    row), p = 16 and n not a multiple of p, p = 1024 (two rows a warp)."""
+    from cpkrylov_tpu_torch.precond import cuda_block_tri
+    from cpkrylov_tpu_torch.precond.trisolve import (block_tri_solve_plain,
+                                                     build_block_tri)
+
+    rng = np.random.default_rng(22)
+    for n, panel in ((50, 4), (997, 16), (3000, 1024)):
+        low = sp.tril(sp.random(n, n, density=0.02, random_state=rng),
+                      k=-1) * 0.3
+        T = (low + sp.diags(rng.uniform(2.0, 4.0, n))).tocsr()
+        tf = build_block_tri(T, torch.float64, cuda, panel=panel)
+        b = torch.as_tensor(rng.standard_normal(n), device=cuda)
+        x = cuda_block_tri.block_tri(tf, b)
+        xp = block_tri_solve_plain(tf, b)
+        torch.cuda.synchronize()
+        assert _rel2(x, xp) <= BAND_TOL[torch.float64], (n, panel)
+
+
+def test_df_tri_kernel_equals_plain_bitwise(cuda):
+    """B10 on both df64 triangles of cvxqp1_m's f32 factor: every step of
+    the chain rounded explicitly, so hi and lo equal the plain version's
+    bit for bit, and a second call's."""
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.precond import cuda_df_tri
+    from cpkrylov_tpu_torch.precond.df_factor import (DFFactorApply,
+                                                      df_tri_matvec_plain)
+    from cpkrylov_tpu_torch.utils.fixtures import load_fixture
+
+    fix = load_fixture("cvxqp1_m")
+    M32 = cpt.make_preconditioner(
+        fix.G, fix.B, fix.C, dtype=torch.float32, device=cuda,
+        options=cpt.PrecondOptions(residual_update=True, nitref=1,
+                                   force_itref=True))
+    assert isinstance(M32.factor, DFFactorApply)
+    rng = np.random.default_rng(23)
+    for t in (M32.factor.t1, M32.factor.t2):
+        v = rng.standard_normal(t.n) * 10.0
+        xh = torch.as_tensor(v.astype(np.float32), device=cuda)
+        xl = torch.as_tensor((v - v.astype(np.float32)).astype(np.float32),
+                             device=cuda)
+        before = cuda_df_tri.LAUNCHES
+        yh, yl = cuda_df_tri.df_tri_matvec(t, (xh, xl))
+        yh2, yl2 = cuda_df_tri.df_tri_matvec(t, (xh, xl))
+        assert cuda_df_tri.LAUNCHES == before + 2
+        ph, pl = df_tri_matvec_plain(t, (xh, xl))
+        torch.cuda.synchronize()
+        assert torch.equal(yh, ph) and torch.equal(yl, pl)
+        assert torch.equal(yh, yh2) and torch.equal(yl, yl2)
+
+
+def test_card_solves_launch_one_kernel_per_solve_and_product(cuda,
+                                                             monkeypatch):
+    """On the card the panel loop and the slot loop never run: every
+    blocked triangular solve is one B9 launch and every df64 triangle
+    product one B10 launch (the f64 and the mixed f32 solve of
+    cvxqp1_m)."""
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.precond import (cuda_block_tri, cuda_df_tri,
+                                            df_factor, trisolve)
+    from cpkrylov_tpu_torch.utils.fixtures import load_fixture
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    calls = {"tri": 0, "df": 0}
+    solve, product = trisolve.block_tri_solve, df_factor.DFTriMat.matvec_df
+
+    def count_solve(tf, b):
+        calls["tri"] += 1
+        return solve(tf, b)
+
+    def count_product(self, x):
+        calls["df"] += 1
+        return product(self, x)
+
+    def refuse(*args):
+        raise AssertionError("a plain loop ran on card tensors")
+
+    monkeypatch.setattr(trisolve, "block_tri_solve", count_solve)
+    monkeypatch.setattr(df_factor.DFTriMat, "matvec_df", count_product)
+    monkeypatch.setattr(cuda_block_tri, "block_tri_solve_plain", refuse)
+    monkeypatch.setattr(cuda_df_tri, "df_tri_matvec_plain", refuse)
+    fix = load_fixture("cvxqp1_m")
+    popts = cpt.PrecondOptions(residual_update=True, nitref=1,
+                               force_itref=True)
+    for dtype in (torch.float64, torch.float32):
+        M = cpt.make_preconditioner(fix.G, fix.B, fix.C, options=popts,
+                                    dtype=dtype, device=cuda)
+        reset_launches()
+        calls.update(tri=0, df=0)
+        if dtype == torch.float64:
+            out = cpt.solve("cpminres", fix.b, fix.A, fix.B, fix.C, fix.G,
+                            M=M, dtype=dtype, precond_opts=popts,
+                            opts=cpt.SolverOptions(itmax=500))
+        else:
+            out = cpt.solve_mixed(
+                "cpminres", fix.b, fix.A, fix.B, fix.C, fix.G, M=M,
+                opts=cpt.SolverOptions(atol=1e-8, rtol=1e-8, itmax=500),
+                precond_opts=popts)
+        counts = launch_counts()
+        assert out.solved
+        assert counts["block_tri"] == calls["tri"] >= 2 * out.niters
+        if dtype == torch.float32:
+            assert counts["df_tri_matvec"] == calls["df"] >= 2 * out.niters
+        else:
+            assert counts["df_tri_matvec"] == calls["df"] == 0
+
+
+def test_block_and_df_wrappers_raise_on_bad_operands(cuda):
+    from cpkrylov_tpu_torch.precond.cuda_block_tri import block_tri
+    from cpkrylov_tpu_torch.precond.cuda_df_tri import df_tri_matvec
+    from cpkrylov_tpu_torch.precond.df_factor import _pack_df_tri
+    from cpkrylov_tpu_torch.precond.trisolve import build_block_tri
+
+    T = (sp.tril(sp.random(300, 300, density=0.05, random_state=1), k=-1)
+         + sp.identity(300)).tocsr()
+    tf = build_block_tri(T, torch.float64, cuda, panel=32)
+    with pytest.raises(TypeError):                 # factor f64, rhs f32
+        block_tri(tf, torch.ones(300, dtype=torch.float32, device=cuda))
+    with pytest.raises(ValueError):                # rhs on another device
+        block_tri(build_block_tri(T, torch.float64, "cpu", panel=32),
+                  torch.ones(300, dtype=torch.float64, device=cuda))
+    t = _pack_df_tri(T, cuda)
+    x = torch.ones(300, device=cuda)
+    with pytest.raises(TypeError):
+        df_tri_matvec(t, (x.double(), x.double()))
+    with pytest.raises(ValueError):
+        df_tri_matvec(t, (x, x[::1].cpu()))
 
 
 # ---------------------------------------------------------------------------

@@ -41,11 +41,12 @@ before its last line:
    bound at both shapes; ``torch.sparse.mm`` timed beside B5 and B1;
    blocked substitution (B9) on both triangles of CVXQP3-L's factor (69
    panels, timed) and of cvxqp1_m's (22 panels), f64 and f32, against its
-   plain version and scipy's ``spsolve_triangular`` and bit for bit
-   against a second call, with its byte bound and its sequential stages;
-   the df64 triangle product (B10) on CVXQP3-L's two df64 triangles, bit
-   for bit against its plain version and a second call, timed (AUG2D-L's
-   are held in 17, where its f32 factor is built);
+   plain version and scipy's ``spsolve_triangular``, row by row, and bit
+   for bit against a second call, with its byte bound and its sequential
+   stages; the df64 triangle product (B10) on both df64 triangles of
+   each, bit for bit against its plain version and a second call, timed
+   on CVXQP3-L's, with its bound from the stored entries (AUG2D-L's are
+   held in 17, where its f32 factor is built);
 6. golden: CPMINRES on the shipped ``cvxqp1_m`` fixture in f64 on the card,
    53 +- 2 iterations and rel-err < 5e-6 against scipy ``spsolve``, its
    triangular solves in B9;
@@ -80,7 +81,8 @@ before its last line:
 12. golden_solvers: ``tests/test_golden.py`` on the card in f64 (cvxqp1_m
    with the Lanczos family and CPDQGMRES at mem 2 and 50, cvxqp2_s with
    CPGMRES(100), CPGMRES(20) and CPDQGMRES(100)): its golden counts and
-   error bounds against scipy ``spsolve``;
+   error bounds against scipy ``spsolve``; B9 held on each fixture's
+   blocked triangles before its solves;
 13. dist_banded: the main path's system and options as two gloo ranks
    (``cpkrylov_tpu_torch.parallel``, spawned processes) that share the
    card: ``dist_solve`` CPMINRES with its default (Schur) factor and with
@@ -148,11 +150,15 @@ the device's busy time and idle share inside the solve span of each trace
 
 On the card every blocked triangular solve is one B9 launch and every
 df64 triangle product one B10 launch: golden_mixed, mm_cvxqp3_l and
-mm_mixed count the calls of ``trisolve.block_tri_solve`` and
-``DFTriMat.matvec_df`` beside the launches and require them equal, and
-the kernels line requires B9 launches on golden, mm_cvxqp3_l, mm_sweep,
-operator_a and golden_solvers, and B10 on golden_mixed, mm_mixed and
-checkpoint.
+mm_mixed count the calls of ``cuda_block_tri.block_tri`` and
+``cuda_df_tri.df_tri_matvec`` beside the launches and require them
+equal, and the kernels line requires B9 launches on golden, mm_cvxqp3_l,
+mm_sweep, operator_a and golden_solvers, and B10 on golden_mixed,
+mm_mixed and checkpoint.  Every phase records the shapes of those calls
+and fails if one of them was not held against the plain version earlier
+in the run (B9: CVXQP3-L and cvxqp1_m in ``mm_kernels``, CVXQP1-L in
+``mm_sweep``, cvxqp2_s in ``golden_solvers``; B10: CVXQP3-L and cvxqp1_m
+in ``mm_kernels``, AUG2D-L in ``mm_mixed``).
 
 Then a JSON line of per-kernel results (time and device time, plain
 version's time, the bound from this run's shapes, the library call's time
@@ -199,18 +205,32 @@ BAND_TOL = {"float32": 1e-3, "float64": 2e-11}
 # the bound leaves room for one rounding per term).
 CSR_SCIPY_TOL = {"float32": 1e-6, "float64": 1e-14}
 
-# Blocked substitution (B9) on the factors of CVXQP3-L and cvxqp1_m:
-# relative 2-norm against its plain version (which sums in torch's order)
-# and against scipy's f64 ``spsolve_triangular``.  The factors carry
-# element growth (solutions up to ~1.5e9 for a unit right-hand side at
-# CVXQP3-L), which amplifies rounding.  On the H100 B9 measured 6.5e-16
-# (f64) and 4.9e-7 (f32) from its plain version at CVXQP3-L, 2.4e-15 and
-# 3.1e-7 from scipy; on the CPU the plain version and the JAX package's
-# loop, which differ only in summation order as B9 and its plain version
-# do, measure 5.3e-14 (f64) and 3.6e-5 (f32) apart on cvxqp1_m's upper
-# triangle.  Each bound is about 10x the larger of those readings.  B9
-# also repeats its bits from call to call.
+# Blocked substitution (B9), on every blocked factor a path solves with.
+# (1) Relative 2-norm against its plain version (which sums in torch's
+# order) and against scipy's f64 ``spsolve_triangular``.  The factors
+# carry element growth (solutions up to ~1.5e9 for a unit right-hand side
+# at CVXQP3-L), which amplifies rounding.  On the H100 (700 W) B9 measured
+# at most 6.5e-16 (f64) and 4.9e-7 (f32) from its plain version at
+# CVXQP3-L, and 1.1e-13 (f64) and 5.5e-5 (f32) at cvxqp1_m's upper
+# triangle; each bound is about 10x the larger card reading of its dtype.
+# (2) A 2-norm over such an x is ruled by its few largest entries, so each
+# solve is also held row by row (``block_tri_stage_error``): with rhs = b
+# - off x and y = inv rhs evaluated in f64 from the solve's own x, every
+# row's |x - y| over (|inv| (|b| + |off| |x|)).  Whatever its summation
+# order, a solve keeps that below gamma_{p+K+1} = (p+K+1) u / (1 - (p+K+1)
+# u) in its unit roundoff u (a dot product of at most K + 1 terms for the
+# rhs, one of p for the panel); the limit is twice that, the second share
+# for the check's own f64 rounding.  B9 also repeats its bits from call to
+# call.
 BLOCK_TOL = {"float32": 4e-4, "float64": 1e-12}
+UNIT_ROUNDOFF = {"float32": 2.0 ** -24, "float64": 2.0 ** -53}
+
+# The shapes at which B9 (("block_tri", dtype, n, panel, nblocks, K)) and
+# B10 (("df_tri_matvec", n, K)) were held against their plain versions in
+# this run (``hold_block_tri``, ``hold_df_tri``).  Every phase runs inside
+# ``counted_calls``, which records the shapes of its calls, and fails if it
+# called either kernel at shapes not held (``_timed``).
+HELD = set()
 
 # Bounds: the larger of bytes over the card's memory rate and operations
 # over its peak rate for their type.  3.35 TB/s and 67 TFLOP/s f32 outside
@@ -941,9 +961,9 @@ def phase_mm_kernels(mm, device, results):
 def phase_block_kernels(mm, device, results):
     """B9 on both triangles of CVXQP3-L's factor (69 panels, timed) and of
     cvxqp1_m's (22 panels, the golden paths'), f64 and f32, against its
-    plain version and scipy; B10 on CVXQP3-L's two df64 triangles (packed
-    from the same host factor as ``mm_mixed``'s f32 preconditioner packs
-    them), timed, bit for bit.  AUG2D-L's df64 triangles are held in
+    plain version and scipy; B10 on both df64 triangles of each (packed
+    from the same host factor as an f32 preconditioner packs them), bit
+    for bit, timed on CVXQP3-L's.  AUG2D-L's df64 triangles are held in
     ``mm_mixed``, where its f32 factor is built."""
     import torch
 
@@ -975,11 +995,11 @@ def phase_block_kernels(mm, device, results):
                                      got["float64"]["max_abs_err"])
             if name == "cvxqp3_l" and label == "L":
                 blk.update(got["float64"], launches_per_call=1)
-        if name == "cvxqp3_l":
-            for tag, T in (("t1", L1), ("t2", U)):
-                t = _pack_df_tri(T, device)
-                hold_df_tri(f"{name} {tag}", t, device, timing=True)
-                del t
+        for tag, T in (("t1", L1), ("t2", U)):
+            t = _pack_df_tri(T, device)
+            hold_df_tri(f"{name} {tag}", t, device,
+                        timing=name == "cvxqp3_l")
+            del t
         del L1, U
         torch.cuda.empty_cache()
 
@@ -1020,14 +1040,59 @@ def block_tri_bound(tf):
 
 
 def df_tri_bound(t):
-    """(ms, "bytes" or "operations", bytes): the least time of one B10
-    product.  Bytes: 12 a slot (hi, lo, an int32 column), the x pair read
-    and the y pair written; operations: the chain's 28 roundings a slot
-    (two_prod 16, its error terms 4, two_sum 6, the lo sum 2)."""
+    """(ms, "bytes" or "operations", bytes, entries, slot ms): the least
+    time of one B10 product, from the triangle's stored entries (the slots
+    whose hi or lo is not zero; the product needs no padding).  Bytes: 12
+    an entry (hi, lo, an int32 column), the x pair read and the y pair
+    written; operations: the chain's 28 roundings an entry (two_prod 16,
+    its error terms 4, two_sum 6, the lo sum 2).  The slot time is the
+    (K, n) layout's read floor, 12 bytes a slot, padding included: what a
+    kernel that walks every slot, as B10 does, cannot go below."""
     K, n = (int(v) for v in t.hi.shape)
-    nbytes = 12 * K * n + 16 * n
-    ms, by = bound_ms(nbytes, 28 * K * n, "float32")
-    return ms, by, nbytes
+    nnz = int(((t.hi != 0) | (t.lo != 0)).sum())
+    nbytes = 12 * nnz + 16 * n
+    ms, by = bound_ms(nbytes, 28 * nnz, "float32")
+    return ms, by, nbytes, nnz, (12 * K * n + 16 * n) / HBM_BYTES_PER_S * 1e3
+
+
+def block_tri_shape(tf, dtype) -> tuple:
+    return ("block_tri", str(dtype).split(".")[1], tf.n, tf.panel,
+            tf.nblocks, int(tf.off_data.shape[1]))
+
+
+def df_tri_shape(t) -> tuple:
+    return ("df_tri_matvec", t.n, int(t.hi.shape[0]))
+
+
+def block_tri_stage_error(tf, b, x) -> float:
+    """The largest row error of one blocked solve, stage by stage: with
+    rhs = b - off x and y = inv rhs, both evaluated in f64 from the solve's
+    own x, max over rows of |x - y| / (|inv| (|b| + |off| |x|)), the
+    factor's values as the solve read them (BLOCK_TOL's note)."""
+    import torch
+
+    f64 = torch.float64
+    p, nb = tf.panel, tf.nblocks
+    xp = torch.zeros(nb * p, dtype=f64, device=x.device)
+    bp = torch.zeros_like(xp)
+    xp[:tf.n], bp[:tf.n] = x, b
+    od, oc = tf.off_data.to(f64), tf.off_cols.long()
+    rhs = bp - (od * xp[oc]).sum(dim=1)
+    scale = bp.abs() + (od.abs() * xp.abs()[oc]).sum(dim=1)
+    inv = tf.inv_diag.to(f64)
+    y = torch.bmm(inv, rhs.view(nb, p, 1)).view(-1)
+    den = torch.bmm(inv.abs(), scale.view(nb, p, 1)).view(-1)
+    num = (xp - y).abs()
+    ratio = torch.where(den > 0, num / den.clamp_min(1e-300),
+                        torch.where(num > 0, float("inf"), 0.0))
+    return float(ratio[:tf.n].max())
+
+
+def block_tri_stage_limit(tf, tname: str) -> float:
+    """Twice gamma_{p+K+1} in the solve's unit roundoff (BLOCK_TOL's
+    note)."""
+    m = (tf.panel + int(tf.off_data.shape[1]) + 1) * UNIT_ROUNDOFF[tname]
+    return 2 * m / (1 - m)
 
 
 def _operand_sets(nbytes, copy, base):
@@ -1043,8 +1108,9 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
     ``dtypes`` (f64 and f32 unless given; the f32 factor holds the same
     numbers rounded once, as an f32 build packs them): against its plain
     version and, given the scipy matrix ``T``, scipy's f64
-    ``spsolve_triangular``, both to BLOCK_TOL, and bit for bit against a
-    second call.  With ``timing``: ``ms`` and ``plain_ms`` (CUDA events),
+    ``spsolve_triangular``, both to BLOCK_TOL, row by row to
+    ``block_tri_stage_limit``, and bit for bit against a second call; each
+    held shape goes into HELD.  With ``timing``: ``ms`` and ``plain_ms`` (CUDA events),
     ``device_ms`` (profiler, the factor and copies of it rotated past the
     L2), the bound.  Returns those readings by dtype name."""
     import dataclasses
@@ -1053,8 +1119,8 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
     import scipy.sparse.linalg as spla
     import torch
 
-    from cpkrylov_tpu_torch.precond.cuda_block_tri import block_tri
-    from cpkrylov_tpu_torch.precond.trisolve import block_tri_solve_plain
+    from cpkrylov_tpu_torch.precond.cuda_block_tri import (
+        block_tri, block_tri_solve_plain)
     from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
 
     rng = np.random.default_rng(17)
@@ -1079,12 +1145,17 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
         err_abs = float(torch.max(torch.abs(x - xp)))
         xk, xpn = x.double().cpu().numpy(), xp.double().cpu().numpy()
         err_plain = rel_2norm(xk, xpn)
+        stage, stage_plain = (block_tri_stage_error(tf, b, v)
+                              for v in (x, xp))
+        stage_lim = block_tri_stage_limit(tf, tname)
         bms, by, nbytes, nnz = block_tri_bound(tf)
         line = (f"kernel block_tri {tname} {what} n={tf.n} "
                 f"panel={tf.panel} nb={tf.nblocks} "
                 f"K={tf.off_data.shape[1]} off_entries={nnz} "
                 f"rel_err_vs_plain={err_plain:.3e} "
-                f"max_abs_err_vs_plain={err_abs:.3e} repeat_equal={repeat} "
+                f"max_abs_err_vs_plain={err_abs:.3e} "
+                f"row_stage_err={stage:.3e} (plain {stage_plain:.3e}, "
+                f"limit {stage_lim:.3e}) repeat_equal={repeat} "
                 f"bound_ms={bms:.4f} ({by}) bytes={nbytes} "
                 f"sequential_stages={2 * tf.nblocks}")
         errs = [("plain", err_plain)]
@@ -1120,12 +1191,17 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
             if not e <= BLOCK_TOL[tname]:
                 raise RuntimeError(f"block_tri {tname} {what}: error vs "
                                    f"{against} {e:.3e} > {BLOCK_TOL[tname]}")
+        if not stage <= stage_lim:
+            raise RuntimeError(f"block_tri {tname} {what}: row error "
+                               f"{stage:.3e} > {stage_lim:.3e}")
+        HELD.add(block_tri_shape(tf, dtype))
     return out
 
 
 def hold_df_tri(what, t, device, timing=False) -> dict:
     """B10 on one df64 triangle (``DFTriMat``): hi and lo bit for bit
-    against its plain version and a second call.  With ``timing``: ``ms``
+    against its plain version and a second call; the held shape goes into
+    HELD.  With ``timing``: ``ms``
     and ``plain_ms`` (CUDA events), ``device_ms`` (profiler; the matrix
     and copies of it rotated past the L2 where it is smaller), the bound.
     Returns those readings."""
@@ -1134,8 +1210,8 @@ def hold_df_tri(what, t, device, timing=False) -> dict:
     import numpy as np
     import torch
 
-    from cpkrylov_tpu_torch.precond.cuda_df_tri import df_tri_matvec
-    from cpkrylov_tpu_torch.precond.df_factor import df_tri_matvec_plain
+    from cpkrylov_tpu_torch.precond.cuda_df_tri import (df_tri_matvec,
+                                                        df_tri_matvec_plain)
     from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
 
     v = np.random.default_rng(19).standard_normal(t.n) * 10.0
@@ -1149,13 +1225,14 @@ def hold_df_tri(what, t, device, timing=False) -> dict:
     repeat = torch.equal(y[0], y2[0]) and torch.equal(y[1], y2[1])
     err_abs = max(float(torch.max(torch.abs(y[0] - yp[0]))),
                   float(torch.max(torch.abs(y[1] - yp[1]))))
-    bms, by, nbytes = df_tri_bound(t)
+    bms, by, nbytes, nnz, slot_ms = df_tri_bound(t)
     K, n = (int(d) for d in t.hi.shape)
     line = (f"kernel df_tri_matvec float32 {what} K={K} n={n} slots={K * n} "
-            f"bitwise_vs_plain={exact} repeat_equal={repeat} "
+            f"entries={nnz} bitwise_vs_plain={exact} repeat_equal={repeat} "
             f"max_abs_err_vs_plain={err_abs:.3e} bound_ms={bms:.4f} ({by}) "
-            f"bytes={nbytes}")
-    got = dict(bound_ms=bms, bound_by=by, max_abs_err=err_abs)
+            f"bytes={nbytes} slot_bound_ms={slot_ms:.4f}")
+    got = dict(bound_ms=bms, bound_by=by, max_abs_err=err_abs,
+               slot_bound_ms=slot_ms)
     if timing:
         ms = cuda_time_ms(lambda: df_tri_matvec(t, (xh, xl)), iters=20,
                           warmup=2)
@@ -1174,35 +1251,42 @@ def hold_df_tri(what, t, device, timing=False) -> dict:
     if not (exact and repeat):
         raise RuntimeError(f"df_tri_matvec {what}: differs from its plain "
                            "version or between calls")
+    HELD.add(df_tri_shape(t))
     return got
 
 
 @contextlib.contextmanager
-def counted_calls():
+def counted_calls(shapes=None):
     """Counts, while open, the blocked-substitution solves
-    (``trisolve.block_tri_solve``, which ``tri_solve`` calls) and the df64
-    triangle products (``DFTriMat.matvec_df``), whatever runs them: on
-    the card each must be one launch of B9 or B10 (``check_calls``)."""
-    from cpkrylov_tpu_torch.precond import df_factor, trisolve
+    (``cuda_block_tri.block_tri``, which ``tri_solve`` calls) and the df64
+    triangle products (``cuda_df_tri.df_tri_matvec``, which
+    ``DFTriMat.matvec_df`` calls), whatever runs them: on the card each
+    must be one launch of B9 or B10 (``check_calls``).  Adds the shape of
+    each call to the set ``shapes`` when one is given."""
+    from cpkrylov_tpu_torch.precond import cuda_block_tri, cuda_df_tri
 
     calls = {"block_tri": 0, "df_tri_matvec": 0}
-    solve, product = trisolve.block_tri_solve, df_factor.DFTriMat.matvec_df
+    solve, product = cuda_block_tri.block_tri, cuda_df_tri.df_tri_matvec
 
     def count_solve(tf, b):
         calls["block_tri"] += 1
+        if shapes is not None:
+            shapes.add(block_tri_shape(tf, b.dtype))
         return solve(tf, b)
 
-    def count_product(self, x):
+    def count_product(t, x):
         calls["df_tri_matvec"] += 1
-        return product(self, x)
+        if shapes is not None:
+            shapes.add(df_tri_shape(t))
+        return product(t, x)
 
-    trisolve.block_tri_solve = count_solve
-    df_factor.DFTriMat.matvec_df = count_product
+    cuda_block_tri.block_tri = count_solve
+    cuda_df_tri.df_tri_matvec = count_product
     try:
         yield calls
     finally:
-        trisolve.block_tri_solve = solve
-        df_factor.DFTriMat.matvec_df = product
+        cuda_block_tri.block_tri = solve
+        cuda_df_tri.df_tri_matvec = product
 
 
 def check_calls(what, calls, launches):
@@ -1716,13 +1800,15 @@ def phase_solvers_banded(sysm, M, device):
 def phase_golden_solvers(device):
     """``tests/test_golden.py`` on the card in f64: the shipped fixtures'
     golden counts and error bounds for the five solvers besides CPMINRES
-    (RCM gather ordering, CSR products of B5).  Returns the launches summed
-    over the solves."""
+    (RCM gather ordering, CSR products of B5); before a fixture's solves,
+    B9 is held on its factor's blocked triangles.  Returns the launches
+    summed over the solves."""
     import numpy as np
     import scipy.sparse.linalg as spla
     import torch
 
     import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.precond.trisolve import BlockTriFactor
     from cpkrylov_tpu_torch.utils.fixtures import load_fixture
     from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
                                                     reset_launches)
@@ -1734,6 +1820,10 @@ def phase_golden_solvers(device):
         fix = load_fixture(fixture)
         M = cpt.make_preconditioner(fix.G, fix.B, fix.C, options=popts,
                                     dtype=torch.float64, device=device)
+        for label, tf in (("L", M.factor.tf1), ("U", M.factor.tf2)):
+            if isinstance(tf, BlockTriFactor):
+                hold_block_tri(f"golden_solvers {fixture} {label}", tf,
+                               device, dtypes=(torch.float64,))
         x_ref = spla.spsolve(fix.K.tocsc(), fix.b)
         for name, extra, iters, slack, relmax in cases:
             reset_launches()
@@ -2928,11 +3018,19 @@ def phase_profile_mm(mm, kept, device, outdir):
 
 
 def _timed(name, fn, *args):
-    """``fn(*args)``, with a line of its wall seconds."""
+    """``fn(*args)``, with a line of its wall seconds; fails if the phase
+    called B9 or B10 at shapes where it was not held against its plain
+    version in this run (HELD)."""
+    seen = set()
     t0 = time.perf_counter()
-    out = fn(*args)
-    print(f"phase {name} seconds={time.perf_counter() - t0:.1f}",
-          flush=True)
+    with counted_calls(seen):
+        out = fn(*args)
+    print(f"phase {name} seconds={time.perf_counter() - t0:.1f} "
+          f"b9_b10_shapes={sorted(seen)}", flush=True)
+    if seen - HELD:
+        raise RuntimeError(f"phase {name}: B9 or B10 called at shapes never "
+                           f"held against its plain version: "
+                           f"{sorted(seen - HELD)}")
     return out
 
 
@@ -3039,7 +3137,8 @@ def run_phases(device, profile_dir=None, full_sweep=False) -> list:
             "name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_per_call", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
-            "library_device_ms", "read_floor_ms", "read_floor_device_ms")
+            "library_device_ms", "read_floor_ms", "read_floor_device_ms",
+            "slot_bound_ms")
             if k in entry})
     return kernels
 

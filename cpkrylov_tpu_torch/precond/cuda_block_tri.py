@@ -12,7 +12,7 @@ off-panel entries in ELL rows ``off_data`` / ``off_cols`` with each row's
 in one launch on a CUDA tensor: one thread block cluster walks the panels,
 reading each row's counted entries and the lower triangle of each inverse
 (the kernel's source says how).  A CPU tensor goes to the plain version,
-``trisolve.block_tri_solve_plain``, the panel loop of the JAX package.  The
+``block_tri_solve_plain``, the panel loop of the JAX package.  The
 kernel sums in a fixed order of its own, so it repeats its bits from call
 to call and agrees with the plain version to rounding.  ``LAUNCHES`` counts
 the kernel's launches, one a solve.
@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .trisolve import BlockTriFactor, block_tri_solve_plain
+from .trisolve import BlockTriFactor
 
 LAUNCHES = 0
 
@@ -31,6 +31,28 @@ MAX_ENTRIES = 1 << 31    # the kernel indexes x with int32 columns
 
 _ENTRY = {torch.float32: "cpkt_block_tri_f32",
           torch.float64: "cpkt_block_tri_f64"}
+
+
+def block_tri_solve_plain(tf: BlockTriFactor,
+                          b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of blocked substitution (trisolve.py:156-175
+    of the JAX package): one panel after another, each a gather of x over
+    the whole ELL row (padding included) and a dense panel product."""
+    panel = tf.panel
+    n_pad = tf.nblocks * panel
+    x = torch.zeros(n_pad, dtype=b.dtype, device=b.device)
+    b_pad = torch.zeros(n_pad, dtype=b.dtype, device=b.device)
+    b_pad[: tf.n] = b
+    od_all = tf.off_data.to(b.dtype)
+    inv_all = tf.inv_diag.to(b.dtype)
+    for i in range(tf.nblocks):
+        r0 = i * panel
+        od = od_all[r0: r0 + panel]
+        oc = tf.off_cols[r0: r0 + panel].long()
+        contrib = (od * x[oc]).sum(dim=1)
+        rhs = b_pad[r0: r0 + panel] - contrib
+        x[r0: r0 + panel] = inv_all[i] @ rhs
+    return x[: tf.n]
 
 
 def _check(tf: BlockTriFactor, b: torch.Tensor) -> None:

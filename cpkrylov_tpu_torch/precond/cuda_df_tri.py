@@ -8,7 +8,7 @@ hi and lo f32, int32 columns) and a df64 vector x = (xh, xl),
 ``df_tri_matvec`` returns the compensated product (yh, yl): one thread per
 row walks its K slots with the plain version's chain, every operation
 rounded explicitly, so kernel and plain version
-(``df_factor.df_tri_matvec_plain``) agree bit for bit.  A CPU tensor goes
+(``df_tri_matvec_plain``) agree bit for bit.  A CPU tensor goes
 to the plain version; on a CUDA tensor the wrapper launches the kernel or
 raises.  ``LAUNCHES`` counts the kernel's launches, one a product.
 """
@@ -18,11 +18,29 @@ import torch
 
 from .. import _build
 from ..ops import df64
-from .df_factor import DFTriMat, df_tri_matvec_plain
+from .df_factor import DFTriMat
 
 LAUNCHES = 0
 
 MAX_ENTRIES = 1 << 31    # the kernel indexes x with int32 columns
+
+
+def df_tri_matvec_plain(t: DFTriMat, x: df64.DF) -> df64.DF:
+    """Plain version of the df64 product (df_factor.py:67-84 of the JAX
+    package): one gather of x and one step of the compensated chain per
+    ELL slot, every slot of every row, each operation rounded on its own."""
+    xh, xl = x
+    acc_h = torch.zeros(t.n, dtype=xh.dtype, device=xh.device)
+    acc_l = torch.zeros(t.n, dtype=xh.dtype, device=xh.device)
+    for k in range(t.hi.shape[0]):
+        c = t.cols[k].long()
+        vh, vl = xh[c], xl[c]
+        dh, dl = t.hi[k], t.lo[k]
+        p, e = df64.two_prod(dh, vh)
+        e = e + dh * vl + dl * vh
+        acc_h, e2 = df64.two_sum(acc_h, p)
+        acc_l = acc_l + (e + e2)
+    return df64.quick_two_sum(acc_h, acc_l)
 
 
 def _check(t: DFTriMat, xh: torch.Tensor, xl: torch.Tensor) -> None:

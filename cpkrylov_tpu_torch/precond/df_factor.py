@@ -41,7 +41,7 @@ class DFTriMat:
     chained) accumulator, so each row's sum errs by O(eps^2) whatever K.
     On a CUDA tensor it is one launch of the hand-written kernel B10
     (``cuda_df_tri.py``), else the plain slot loop
-    (``df_tri_matvec_plain``); the two agree bit for bit."""
+    (``cuda_df_tri.df_tri_matvec_plain``); the two agree bit for bit."""
 
     hi: torch.Tensor     # (K, n) f32
     lo: torch.Tensor     # (K, n) f32
@@ -52,24 +52,6 @@ class DFTriMat:
         from .cuda_df_tri import df_tri_matvec
 
         return df_tri_matvec(self, x)
-
-
-def df_tri_matvec_plain(t: DFTriMat, x: df64.DF) -> df64.DF:
-    """Plain version of the df64 product (df_factor.py:67-84 of the JAX
-    package): one gather of x and one step of the compensated chain per
-    ELL slot, every slot of every row, each operation rounded on its own."""
-    xh, xl = x
-    acc_h = torch.zeros(t.n, dtype=xh.dtype, device=xh.device)
-    acc_l = torch.zeros(t.n, dtype=xh.dtype, device=xh.device)
-    for k in range(t.hi.shape[0]):
-        c = t.cols[k].long()
-        vh, vl = xh[c], xl[c]
-        dh, dl = t.hi[k], t.lo[k]
-        p, e = df64.two_prod(dh, vh)
-        e = e + dh * vl + dl * vh
-        acc_h, e2 = df64.two_sum(acc_h, p)
-        acc_l = acc_l + (e + e2)
-    return df64.quick_two_sum(acc_h, acc_l)
 
 
 def _pack_df_tri(T, device) -> DFTriMat:

@@ -14,7 +14,8 @@ solve is the sequential loop
 
 over ``n / panel`` panels.  On a CUDA tensor it runs as one launch of the
 hand-written kernel B9 (``cuda_block_tri.py``), which walks the panels
-itself; ``block_tri_solve_plain`` is the plain PyTorch loop.
+itself; ``cuda_block_tri.block_tri_solve_plain`` is the plain PyTorch
+loop.
 
 *Reduced-state scan* (``ReducedScanTriFactor``) serves a factor whose
 subdiagonal reach r is at most the panel p.  Panel i only reads the last r
@@ -148,36 +149,6 @@ def build_block_tri(T, dtype: torch.dtype, device,
         n=int(n), panel=int(panel))
 
 
-def block_tri_solve_plain(tf: BlockTriFactor,
-                          b: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of blocked substitution (trisolve.py:156-175
-    of the JAX package): one panel after another, each a gather of x over
-    the whole ELL row (padding included) and a dense panel product."""
-    panel = tf.panel
-    n_pad = tf.nblocks * panel
-    x = torch.zeros(n_pad, dtype=b.dtype, device=b.device)
-    b_pad = torch.zeros(n_pad, dtype=b.dtype, device=b.device)
-    b_pad[: tf.n] = b
-    od_all = tf.off_data.to(b.dtype)
-    inv_all = tf.inv_diag.to(b.dtype)
-    for i in range(tf.nblocks):
-        r0 = i * panel
-        od = od_all[r0: r0 + panel]
-        oc = tf.off_cols[r0: r0 + panel].long()
-        contrib = (od * x[oc]).sum(dim=1)
-        rhs = b_pad[r0: r0 + panel] - contrib
-        x[r0: r0 + panel] = inv_all[i] @ rhs
-    return x[: tf.n]
-
-
-def block_tri_solve(tf: BlockTriFactor, b: torch.Tensor) -> torch.Tensor:
-    """Solve T x = b for the prepared lower-triangular factor: kernel B9
-    for a CUDA tensor, else the plain version (``cuda_block_tri``)."""
-    from .cuda_block_tri import block_tri
-
-    return block_tri(tf, b)
-
-
 @dataclasses.dataclass(frozen=True)
 class ReducedScanTriFactor:
     """Banded lower factor for the reduced-state scan (kernel B4).
@@ -309,10 +280,11 @@ def reduced_scan_tri_solve_plain(tf: ReducedScanTriFactor,
 def tri_solve(tf, b: torch.Tensor) -> torch.Tensor:
     """Dispatch on the prepared factor kind."""
     from .cuda_bidiag import BidiagTriFactor, bidiag_tri_solve
+    from .cuda_block_tri import block_tri
     from .cuda_tri import band_tri_solve
 
     if isinstance(tf, BidiagTriFactor):
         return bidiag_tri_solve(tf, b)
     if isinstance(tf, ReducedScanTriFactor):
         return band_tri_solve(tf, b)
-    return block_tri_solve(tf, b)
+    return block_tri(tf, b)

@@ -40,10 +40,9 @@ from cpkrylov_tpu.precond import trisolve as jtri
 from cpkrylov_tpu_torch import make_preconditioner
 from cpkrylov_tpu_torch.precond import cuda_block_tri
 from cpkrylov_tpu_torch.precond.cp import factorize_kp
-from cpkrylov_tpu_torch.precond.cuda_block_tri import block_tri
+from cpkrylov_tpu_torch.precond.cuda_block_tri import (block_tri,
+                                                       block_tri_solve_plain)
 from cpkrylov_tpu_torch.precond.trisolve import (BlockTriFactor,
-                                                 block_tri_solve,
-                                                 block_tri_solve_plain,
                                                  build_block_tri, tri_solve)
 from cpkrylov_tpu_torch.utils.fixtures import load_fixture
 
@@ -164,7 +163,6 @@ def test_cpu_dispatch_runs_the_plain_version_and_no_kernel(dtype):
     before = cuda_block_tri.LAUNCHES
     x = block_tri(tf, b)
     assert torch.equal(x, block_tri_solve_plain(tf, b))
-    assert torch.equal(block_tri_solve(tf, b), x)
     assert torch.equal(tri_solve(tf, b), x)
     assert cuda_block_tri.LAUNCHES == before
     with pytest.raises(ValueError, match="rhs has shape"):

@@ -40,9 +40,9 @@ from cpkrylov_tpu.ops import df64 as jdf64
 from cpkrylov_tpu.precond import df_factor as jdf
 from cpkrylov_tpu_torch.precond import cuda_df_tri
 from cpkrylov_tpu_torch.precond.cp import assemble_kp, factorize_kp
-from cpkrylov_tpu_torch.precond.cuda_df_tri import df_tri_matvec
-from cpkrylov_tpu_torch.precond.df_factor import (DFTriMat, _pack_df_tri,
-                                                  df_tri_matvec_plain)
+from cpkrylov_tpu_torch.precond.cuda_df_tri import (df_tri_matvec,
+                                                    df_tri_matvec_plain)
+from cpkrylov_tpu_torch.precond.df_factor import DFTriMat, _pack_df_tri
 from cpkrylov_tpu_torch.utils.convert import df_factor_from_host
 from cpkrylov_tpu_torch.utils.fixtures import load_fixture
 

@@ -684,8 +684,9 @@ def test_block_tri_kernel_matches_plain_and_scipy(cuda, dtype):
     of scipy (the CPU plain version measures 3.8e-14 / 2.4e-6 against
     scipy here), and bit for bit against a second call."""
     from cpkrylov_tpu_torch.precond import cuda_block_tri
-    from cpkrylov_tpu_torch.precond.trisolve import (block_tri_solve_plain,
-                                                     build_block_tri)
+    from cpkrylov_tpu_torch.precond.cuda_block_tri import \
+        block_tri_solve_plain
+    from cpkrylov_tpu_torch.precond.trisolve import build_block_tri
 
     rng = np.random.default_rng(21)
     for label, T in _cvxqp3_2000_triangles().items():
@@ -709,8 +710,9 @@ def test_block_tri_kernel_small_panels_and_ragged_n(cuda):
     """Panels below a row a block (p = 4: blocks of the cluster without a
     row), p = 16 and n not a multiple of p, p = 1024 (two rows a warp)."""
     from cpkrylov_tpu_torch.precond import cuda_block_tri
-    from cpkrylov_tpu_torch.precond.trisolve import (block_tri_solve_plain,
-                                                     build_block_tri)
+    from cpkrylov_tpu_torch.precond.cuda_block_tri import \
+        block_tri_solve_plain
+    from cpkrylov_tpu_torch.precond.trisolve import build_block_tri
 
     rng = np.random.default_rng(22)
     for n, panel in ((50, 4), (997, 16), (3000, 1024)):
@@ -731,8 +733,8 @@ def test_df_tri_kernel_equals_plain_bitwise(cuda):
     bit for bit, and a second call's."""
     import cpkrylov_tpu_torch as cpt
     from cpkrylov_tpu_torch.precond import cuda_df_tri
-    from cpkrylov_tpu_torch.precond.df_factor import (DFFactorApply,
-                                                      df_tri_matvec_plain)
+    from cpkrylov_tpu_torch.precond.cuda_df_tri import df_tri_matvec_plain
+    from cpkrylov_tpu_torch.precond.df_factor import DFFactorApply
     from cpkrylov_tpu_torch.utils.fixtures import load_fixture
 
     fix = load_fixture("cvxqp1_m")
@@ -765,13 +767,13 @@ def test_card_solves_launch_one_kernel_per_solve_and_product(cuda,
     cvxqp1_m)."""
     import cpkrylov_tpu_torch as cpt
     from cpkrylov_tpu_torch.precond import (cuda_block_tri, cuda_df_tri,
-                                            df_factor, trisolve)
+                                            df_factor)
     from cpkrylov_tpu_torch.utils.fixtures import load_fixture
     from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
                                                     reset_launches)
 
     calls = {"tri": 0, "df": 0}
-    solve, product = trisolve.block_tri_solve, df_factor.DFTriMat.matvec_df
+    solve, product = cuda_block_tri.block_tri, df_factor.DFTriMat.matvec_df
 
     def count_solve(tf, b):
         calls["tri"] += 1
@@ -784,7 +786,7 @@ def test_card_solves_launch_one_kernel_per_solve_and_product(cuda,
     def refuse(*args):
         raise AssertionError("a plain loop ran on card tensors")
 
-    monkeypatch.setattr(trisolve, "block_tri_solve", count_solve)
+    monkeypatch.setattr(cuda_block_tri, "block_tri", count_solve)
     monkeypatch.setattr(df_factor.DFTriMat, "matvec_df", count_product)
     monkeypatch.setattr(cuda_block_tri, "block_tri_solve_plain", refuse)
     monkeypatch.setattr(cuda_df_tri, "df_tri_matvec_plain", refuse)

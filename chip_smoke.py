@@ -224,6 +224,8 @@ CSR_SCIPY_TOL = {"float32": 1e-6, "float64": 1e-14}
 # call.
 BLOCK_TOL = {"float32": 4e-4, "float64": 1e-12}
 UNIT_ROUNDOFF = {"float32": 2.0 ** -24, "float64": 2.0 ** -53}
+# the panel above the old 1024 bound at which B9 is also held (cvxqp1_m)
+WIDE_PANEL = 2048
 
 # The shapes at which B9 (("block_tri", dtype, n, panel, nblocks, K)) and
 # B10 (("df_tri_matvec", n, K)) were held against their plain versions in
@@ -960,17 +962,19 @@ def phase_mm_kernels(mm, device, results):
 
 def phase_block_kernels(mm, device, results):
     """B9 on both triangles of CVXQP3-L's factor (69 panels, timed) and of
-    cvxqp1_m's (22 panels, the golden paths'), f64 and f32, against its
-    plain version and scipy; B10 on both df64 triangles of each (packed
-    from the same host factor as an f32 preconditioner packs them), bit
-    for bit, timed on CVXQP3-L's.  AUG2D-L's df64 triangles are held in
-    ``mm_mixed``, where its f32 factor is built."""
+    cvxqp1_m's (22 panels, the golden paths'; and at panels of WIDE_PANEL),
+    f64 and f32, against its plain version and scipy; B10 on both df64
+    triangles of each (packed from the same host factor as an f32
+    preconditioner packs them), bit for bit, timed on CVXQP3-L's, whose t1
+    is also held with the special x[0] of DF_SPECIAL_X0.  AUG2D-L's df64
+    triangles are held in ``mm_mixed``, where its f32 factor is built."""
     import torch
 
     import cpkrylov_tpu_torch as cpt
     from cpkrylov_tpu_torch.precond.cp import build_precond, factorize_kp
     from cpkrylov_tpu_torch.precond.df_factor import _pack_df_tri
-    from cpkrylov_tpu_torch.precond.trisolve import BlockTriFactor
+    from cpkrylov_tpu_torch.precond.trisolve import (BlockTriFactor,
+                                                     build_block_tri)
     from cpkrylov_tpu_torch.utils.fixtures import load_fixture
 
     blk = results["block_tri"]
@@ -998,8 +1002,18 @@ def phase_block_kernels(mm, device, results):
         for tag, T in (("t1", L1), ("t2", U)):
             t = _pack_df_tri(T, device)
             hold_df_tri(f"{name} {tag}", t, device,
-                        timing=name == "cvxqp3_l")
+                        timing=name == "cvxqp3_l",
+                        special=name == "cvxqp3_l" and tag == "t1")
             del t
+        if name == "cvxqp1_m":
+            # any panel (ROADMAP C.1): 3 panels of 2048 rows; in f64 the
+            # panel's vectors live in the scratch buffer, not on chip
+            for label, T in (("L", L1), ("U", U)):
+                tf = build_block_tri(T, torch.float64, device,
+                                     panel=WIDE_PANEL)
+                hold_block_tri(f"{name} {label} panel={WIDE_PANEL}", tf,
+                               device, T=T)
+                del tf
         del L1, U
         torch.cuda.empty_cache()
 
@@ -1120,7 +1134,7 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
     import torch
 
     from cpkrylov_tpu_torch.precond.cuda_block_tri import (
-        block_tri, block_tri_solve_plain)
+        block_tri, block_tri_solve_plain, on_chip_fits)
     from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
 
     rng = np.random.default_rng(17)
@@ -1157,7 +1171,8 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
                 f"row_stage_err={stage:.3e} (plain {stage_plain:.3e}, "
                 f"limit {stage_lim:.3e}) repeat_equal={repeat} "
                 f"bound_ms={bms:.4f} ({by}) bytes={nbytes} "
-                f"sequential_stages={2 * tf.nblocks}")
+                f"sequential_stages={2 * tf.nblocks} "
+                f"on_chip={on_chip_fits(tf, dtype, device)}")
         errs = [("plain", err_plain)]
         if ref is not None:
             err_ref = rel_2norm(xk, ref)
@@ -1177,10 +1192,14 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
                 off_counts=tf.off_counts.clone()), torch.randn_like(b)),
                 (tf, b))
             dms = device_ms(block_tri, sets, iters=48)
+            per_panel = None if dms is None else 1e3 * dms / tf.nblocks
             line += (f" ms={ms:.4f} plain_ms={pms:.4f} "
-                     f"device_ms={_fmt(dms)} launches_per_call=1 "
+                     f"device_ms={_fmt(dms)} "
+                     f"per_panel_us={_fmt(per_panel)} launches_per_call=1 "
                      f"operand_sets={len(sets)}")
-            got.update(ms=ms, plain_ms=pms, device_ms=dms)
+            got.update(ms=ms, plain_ms=pms, device_ms=dms,
+                       per_panel_us=per_panel,
+                       sequential_stages=2 * tf.nblocks)
             del sets
         print(line, flush=True)
         out[tname] = got
@@ -1198,13 +1217,31 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
     return out
 
 
-def hold_df_tri(what, t, device, timing=False) -> dict:
+def df_tri_walk(t) -> tuple:
+    """(slots B10 walks, slot steps of its warps): a row's stored slots and
+    one padding slot, min(count + 1, K) chain steps; a warp of 32
+    consecutive rows steps as often as its longest row."""
+    import torch
+
+    K = int(t.hi.shape[0])
+    steps = torch.clamp(t.counts.long() + 1, max=K)
+    pad = (-t.n) % 32
+    warp = torch.cat([steps, steps.new_zeros(pad)]).view(-1, 32).amax(1)
+    return int(steps.sum()), 32 * int(warp.sum())
+
+
+# the values of x[0] (the column of every padding slot) at which B10 is held
+# bit for bit beside a random x (``hold_df_tri(special=True)``)
+DF_SPECIAL_X0 = (-0.0, 1e35, float("inf"))
+
+
+def hold_df_tri(what, t, device, timing=False, special=False) -> dict:
     """B10 on one df64 triangle (``DFTriMat``): hi and lo bit for bit
-    against its plain version and a second call; the held shape goes into
-    HELD.  With ``timing``: ``ms``
-    and ``plain_ms`` (CUDA events), ``device_ms`` (profiler; the matrix
-    and copies of it rotated past the L2 where it is smaller), the bound.
-    Returns those readings."""
+    against its plain version and a second call; with ``special`` also with
+    x[0] at each of DF_SPECIAL_X0 (NaNs compared by their bits); the held
+    shape goes into HELD.  With ``timing``: ``ms`` and ``plain_ms`` (CUDA
+    events), ``device_ms`` (profiler; the matrix and copies of it rotated
+    past the L2 where it is smaller), the bound.  Returns those readings."""
     import dataclasses
 
     import numpy as np
@@ -1226,21 +1263,39 @@ def hold_df_tri(what, t, device, timing=False) -> dict:
     err_abs = max(float(torch.max(torch.abs(y[0] - yp[0]))),
                   float(torch.max(torch.abs(y[1] - yp[1]))))
     bms, by, nbytes, nnz, slot_ms = df_tri_bound(t)
+    walked, warp_steps = df_tri_walk(t)
     K, n = (int(d) for d in t.hi.shape)
     line = (f"kernel df_tri_matvec float32 {what} K={K} n={n} slots={K * n} "
-            f"entries={nnz} bitwise_vs_plain={exact} repeat_equal={repeat} "
-            f"max_abs_err_vs_plain={err_abs:.3e} bound_ms={bms:.4f} ({by}) "
-            f"bytes={nbytes} slot_bound_ms={slot_ms:.4f}")
+            f"entries={nnz} slots_walked={walked} "
+            f"warp_slot_steps={warp_steps} bitwise_vs_plain={exact} "
+            f"repeat_equal={repeat} max_abs_err_vs_plain={err_abs:.3e} "
+            f"bound_ms={bms:.4f} ({by}) bytes={nbytes} "
+            f"slot_bound_ms={slot_ms:.4f}")
+    special_ok = True
+    if special:
+        for x0 in DF_SPECIAL_X0:
+            sh, sl = xh.clone(), xl.clone()
+            sh[0] = x0
+            sl[0] = x0 if x0 == 0 else 0.0
+            a, c = df_tri_matvec(t, (sh, sl)), df_tri_matvec_plain(t,
+                                                                   (sh, sl))
+            torch.cuda.synchronize()
+            ok = all(torch.equal(u.view(torch.int32), w.view(torch.int32))
+                     for u, w in zip(a, c))
+            special_ok &= ok
+            line += f" bitwise_x0={x0}:{ok}"
     got = dict(bound_ms=bms, bound_by=by, max_abs_err=err_abs,
-               slot_bound_ms=slot_ms)
+               slot_bound_ms=slot_ms, slots=K * n, entries=nnz,
+               slots_walked=walked)
     if timing:
         ms = cuda_time_ms(lambda: df_tri_matvec(t, (xh, xl)), iters=20,
                           warmup=2)
         pms = cuda_time_ms(lambda: df_tri_matvec_plain(t, (xh, xl)),
                            iters=2, warmup=1)
         sets = _operand_sets(nbytes, lambda: (dataclasses.replace(
-            t, hi=t.hi.clone(), lo=t.lo.clone(), cols=t.cols.clone()),
-            torch.randn_like(xh), torch.zeros_like(xl)), (t, xh, xl))
+            t, hi=t.hi.clone(), lo=t.lo.clone(), cols=t.cols.clone(),
+            counts=t.counts.clone()), torch.randn_like(xh),
+            torch.zeros_like(xl)), (t, xh, xl))
         dms = device_ms(lambda m, h, lo: df_tri_matvec(m, (h, lo)), sets,
                         iters=48)
         line += (f" ms={ms:.4f} plain_ms={pms:.4f} device_ms={_fmt(dms)} "
@@ -1248,7 +1303,7 @@ def hold_df_tri(what, t, device, timing=False) -> dict:
         got.update(ms=ms, plain_ms=pms, device_ms=dms)
         del sets
     print(line, flush=True)
-    if not (exact and repeat):
+    if not (exact and repeat and special_ok):
         raise RuntimeError(f"df_tri_matvec {what}: differs from its plain "
                            "version or between calls")
     HELD.add(df_tri_shape(t))
@@ -3138,7 +3193,8 @@ def run_phases(device, profile_dir=None, full_sweep=False) -> list:
             "launches_by_path", "launches_per_call", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "read_floor_ms", "read_floor_device_ms",
-            "slot_bound_ms")
+            "slot_bound_ms", "per_panel_us", "sequential_stages", "slots",
+            "entries", "slots_walked")
             if k in entry})
     return kernels
 

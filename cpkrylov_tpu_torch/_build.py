@@ -47,7 +47,7 @@ _I32 = ctypes.c_int
 _F64 = ctypes.c_double
 
 # C signatures of the kernel library: (name, argtypes).  Every function
-# returns an int (a cudaError_t).
+# returns an int (a cudaError_t) unless _RESTYPES says otherwise.
 _KERNEL_SIGNATURES = {
     # data, offsets (int64, device), ndiag, nrows, ncols, x, y, stream
     "cpkt_dia_spmv_f32": (_P, _P, _I32, _I64, _I64, _P, _P, _P),
@@ -89,15 +89,23 @@ _KERNEL_SIGNATURES = {
     # src, dst, n, m, c, itemsize (4 or 8), stream
     "cpkt_interleave": (_P, _P, _I64, _I64, _I64, _I32, _P),
     "cpkt_uninterleave": (_P, _P, _I64, _I64, _I64, _I32, _P),
-    # B9: inv, off_data, off_cols (int32), off_counts (int32), b, x (nb*p),
-    # n, p, nb, K, stream
-    "cpkt_block_tri_f32": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32,
-                           _P),
-    "cpkt_block_tri_f64": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32,
-                           _P),
-    # B10: hi, lo, cols (int32), K, n, xh, xl, yh, yl, stream
-    "cpkt_df_tri_matvec_f32": (_P, _P, _P, _I32, _I64, _P, _P, _P, _P, _P),
+    # B9: inv, off_data, off_cols, off_counts (int32), b, x (nb*p), scratch
+    # (p, when rhs is not on chip), n, p, nb, K, on_chip, stream
+    "cpkt_block_tri_f32": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64,
+                           _I32, _I32, _P),
+    "cpkt_block_tri_f64": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64,
+                           _I32, _I32, _P),
+    # the most shared memory a block may take on a device
+    "cpkt_smem_optin": (_I32,),
+    # B10: hi, lo, cols (int32), counts (int32), K, n, xh, xl, yh, yl,
+    # stream
+    "cpkt_df_tri_matvec_f32": (_P, _P, _P, _P, _I32, _I64, _P, _P, _P, _P,
+                               _P),
 }
+
+
+# functions that return something else than a cudaError_t
+_RESTYPES = {"cpkt_smem_optin": _I64}
 
 
 class BuildError(Exception):
@@ -202,7 +210,7 @@ def kernel_library() -> ctypes.CDLL:
         for fn, argtypes in _KERNEL_SIGNATURES.items():
             f = getattr(lib, fn)
             f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
+            f.restype = _RESTYPES.get(fn, ctypes.c_int)
         lib.cpkt_error_string.argtypes = [ctypes.c_int]
         lib.cpkt_error_string.restype = ctypes.c_char_p
         _LIBS["kernels"] = lib

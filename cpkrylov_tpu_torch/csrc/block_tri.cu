@@ -17,30 +17,34 @@
 // and the off entries (6.8 MB at 12 bytes each), about 7.6 us at
 // 3.35 TB/s, but the 69 panels are 138 dependent stages (the off entries of
 // panel i reach up to 2213 rows back), each a gather or a dot product at the
-// latency of L2 plus a barrier.
+// latency of L2 plus a cluster barrier (~0.63 us each, measured by
+// tools/b9_panel_breakdown.py).
 //
 // Design: one thread block cluster of kCluster blocks walks the panels.
 // Block `rank` owns ceil(p / kCluster) consecutive rows of every panel, a
 // warp per row (more rows a warp when a block would need more than 32
 // warps).
-//   (a) For each of its rows a warp walks the row's count[r] slots
-//       (contiguous: lane k takes slots k, k + 32, ...; the padding of the
-//       ELL, 96 % of CVXQP3-L's slots, is never read), gathers x from L2,
-//       reduces in a fixed butterfly, and stores b_r - sum into rhs[r] of
-//       every block of the cluster through distributed shared memory.
+//   (a) For each of its rows a warp sums the row's entries (lane k takes
+//       slots k, k + 32, ...; the padding of the ELL, 96 % of CVXQP3-L's
+//       slots, is never read), gathers x from L2, reduces in a fixed
+//       butterfly, and stores b_r - sum into rhs[r] of every block of the
+//       cluster through distributed shared memory.
 //   (b) After a cluster barrier, each warp forms its rows of inv_i rhs over
 //       the lower triangle (row j reads j + 1 entries) and stores them in x.
 // A second cluster barrier (release / acquire at cluster scope) makes x_i
 // visible to the next panel's gathers, which read x with ld.global.cg (L2,
 // never a stale L1 line).  Both barriers are split: between the arrive and
 // the wait each warp loads what the next stage reads and what does not
-// depend on the other blocks: its row of inv_i before (b), the count and the
-// first 32 slots of its next row before (a).
+// depend on the other blocks: its row of inv_i before (b), the count and
+// the first 32 slots of its next row before (a).  rhs lies in dynamic
+// shared memory sized from p; a panel whose rhs does not fit there
+// (kOnChip false) keeps it in a scratch buffer in device memory, written
+// once by its owner and read through L2 after the barrier.
 // Determinism: no atomics; every sum is taken in the same order on every
-// call (per lane in slot order, then the butterfly), so a second call on the
-// same inputs gives the same bits.  The plain version (trisolve.py::
-// block_tri_solve_plain) sums in torch's order, so the two agree to
-// rounding, not bit for bit.
+// call (per lane in slot order, then the butterfly), so a second call on
+// the same inputs gives the same bits.  The plain version
+// (trisolve.py::block_tri_solve_plain) sums in torch's order, so the two
+// agree to rounding, not bit for bit.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -51,7 +55,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kCluster = 8;        // blocks of the cluster (portable size)
-constexpr int kMaxPanel = 1024;    // largest p the kernel takes
 constexpr int kMaxWarps = 32;
 constexpr int kPre = 8;            // inv entries a lane loads ahead (p <= 256)
 constexpr unsigned kFull = 0xffffffffu;
@@ -72,13 +75,38 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
-template <typename T>
+// Clock stamps of tools/b9_panel_breakdown.py: a build of this file with
+// CPKT_B9_STAMPS defined has lane 0 of every warp write clock64() at
+// kStamps points of every panel into g_stamps[((i * kCluster + rank) *
+// kMaxWarps + warp) * kStamps + k] (cpkt_b9_set_stamps sets the buffer);
+// the package's build has none of it.
+#ifdef CPKT_B9_STAMPS
+constexpr int kStamps = 6;
+__device__ long long* g_stamps;
+#define CPKT_STAMP(i, k)                                                  \
+  do {                                                                    \
+    if (lane == 0) {                                                      \
+      g_stamps[(((i) * kCluster + rank) * kMaxWarps + warp) * kStamps +   \
+               (k)] = clock64();                                          \
+    }                                                                     \
+  } while (0)
+#else
+#define CPKT_STAMP(i, k) \
+  do {                   \
+  } while (0)
+#endif
+
+template <typename T, bool kOnChip>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 block_tri_kernel(const T* __restrict__ inv, const T* __restrict__ od,
                  const int* __restrict__ oc, const int* __restrict__ cnt,
-                 const T* __restrict__ b, T* x, int64_t n, int p, int64_t nb,
-                 int K, int rows_b) {
-  __shared__ T rhs[kMaxPanel];
+                 const T* __restrict__ b, T* x, T* scratch, int64_t n, int p,
+                 int64_t nb, int K, int rows_b) {
+  // rhs: in dynamic shared memory (addressed as such, so its loads are
+  // LDS), or in the scratch buffer of a panel that does not fit
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const rhs_s = reinterpret_cast<T*>(smem);
+  T* const rhs_g = scratch;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int warps = static_cast<int>(blockDim.x) >> 5;
@@ -109,6 +137,7 @@ block_tri_kernel(const T* __restrict__ inv, const T* __restrict__ od,
 
   for (int64_t i = 0; i < nb; ++i) {
     const int64_t base = i * p;
+    CPKT_STAMP(i, 0);
     // (a) rhs of this block's rows, into every block's rhs
     for (int j = j0; j < row_end; j += warps) {
       const int64_t g = base + j;
@@ -128,11 +157,13 @@ block_tri_kernel(const T* __restrict__ inv, const T* __restrict__ od,
       for (; k < c; k += 32) acc += d[k] * __ldcg(x + cols[k]);
       acc = warp_sum(acc);
       const T v = (g < n ? b[g] : T(0)) - acc;
-      if (lane < kCluster) {
-        T* dst = cluster.map_shared_rank(&rhs[0], lane);
-        dst[j] = v;
+      if constexpr (kOnChip) {
+        if (lane < kCluster) *cluster.map_shared_rank(rhs_s + j, lane) = v;
+      } else {
+        if (lane == 0) __stcg(rhs_g + j, v);
       }
     }
+    CPKT_STAMP(i, 1);
     cluster_arrive();
     // this warp's first row of inv_i, ahead of the barrier
     T pre[kPre];
@@ -143,6 +174,7 @@ block_tri_kernel(const T* __restrict__ inv, const T* __restrict__ od,
       pre[t] = (has_row && k <= j0) ? row0[k] : T(0);
     }
     cluster_wait();
+    CPKT_STAMP(i, 2);
     // (b) x_i = inv_i rhs over the lower triangle
     for (int j = j0; j < row_end; j += warps) {
       const T* row = inv + (base + j) * p;
@@ -151,34 +183,50 @@ block_tri_kernel(const T* __restrict__ inv, const T* __restrict__ od,
       if (j == j0) {
 #pragma unroll
         for (int t = 0; t < kPre; ++t, k += 32) {
-          if (k <= j) acc += pre[t] * rhs[k];
+          if (k <= j) {
+            if constexpr (kOnChip) {
+              acc += pre[t] * rhs_s[k];
+            } else {
+              acc += pre[t] * __ldcg(rhs_g + k);
+            }
+          }
         }
       }
-      for (; k <= j; k += 32) acc += row[k] * rhs[k];
+      if constexpr (kOnChip) {
+        for (; k <= j; k += 32) acc += row[k] * rhs_s[k];
+      } else {
+        for (; k <= j; k += 32) acc += row[k] * __ldcg(rhs_g + k);
+      }
       acc = warp_sum(acc);
       if (lane == 0) __stcg(x + base + j, acc);
     }
+    CPKT_STAMP(i, 3);
     cluster_arrive();
     if (i + 1 < nb) prefetch_a(base + p);
+    CPKT_STAMP(i, 4);
     cluster_wait();
+    CPKT_STAMP(i, 5);
   }
 }
 
-template <typename T>
-int launch_block_tri(const void* inv, const void* od, const void* oc,
-                     const void* cnt, const void* b, void* x, int64_t n,
-                     int p, int64_t nb, int K, void* stream) {
-  if (p < 1 || p > kMaxPanel || K < 1 || nb * p < n) {
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, bool kOnChip>
+cudaError_t launch_mode(int warps, size_t smem, cudaStream_t stream,
+                        const void* inv, const void* od, const void* oc,
+                        const void* cnt, const void* b, void* x,
+                        void* scratch, int64_t n, int p, int64_t nb, int K,
+                        int rows_b) {
+  auto kernel = block_tri_kernel<T, kOnChip>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
   }
-  if (nb <= 0) return static_cast<int>(cudaGetLastError());
-  const int rows_b = (p + kCluster - 1) / kCluster;
-  const int warps = rows_b < kMaxWarps ? rows_b : kMaxWarps;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster, 1, 1);
   cfg.blockDim = dim3(32 * warps, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kCluster;
@@ -186,11 +234,30 @@ int launch_block_tri(const void* inv, const void* od, const void* oc,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, block_tri_kernel<T>, static_cast<const T*>(inv),
-      static_cast<const T*>(od), static_cast<const int*>(oc),
-      static_cast<const int*>(cnt), static_cast<const T*>(b),
-      static_cast<T*>(x), n, p, nb, K, rows_b);
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(inv), static_cast<const T*>(od),
+      static_cast<const int*>(oc), static_cast<const int*>(cnt),
+      static_cast<const T*>(b), static_cast<T*>(x), static_cast<T*>(scratch),
+      n, p, nb, K, rows_b);
+}
+
+template <typename T>
+int launch_block_tri(const void* inv, const void* od, const void* oc,
+                     const void* cnt, const void* b, void* x, void* scratch,
+                     int64_t n, int p, int64_t nb, int K, int on_chip,
+                     void* stream) {
+  if (p < 1 || K < 1 || nb * p < n || (!on_chip && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (nb <= 0) return static_cast<int>(cudaGetLastError());
+  const int rows_b = (p + kCluster - 1) / kCluster;
+  const int warps = rows_b < kMaxWarps ? rows_b : kMaxWarps;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      on_chip ? launch_mode<T, true>(warps, sizeof(T) * p, st, inv, od, oc,
+                                     cnt, b, x, scratch, n, p, nb, K, rows_b)
+              : launch_mode<T, false>(warps, 0, st, inv, od, oc, cnt, b, x,
+                                      scratch, n, p, nb, K, rows_b);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -199,17 +266,37 @@ int launch_block_tri(const void* inv, const void* od, const void* oc,
 
 extern "C" {
 
+#ifdef CPKT_B9_STAMPS
+int cpkt_b9_set_stamps(void* buffer) {
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_stamps, &buffer, sizeof(buffer)));
+}
+#endif
+
+// the most shared memory a block of `device` may take (bytes)
+int64_t cpkt_smem_optin(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess) {
+    return -1;
+  }
+  return v;
+}
+
 int cpkt_block_tri_f32(const void* inv, const void* od, const void* oc,
-                       const void* cnt, const void* b, void* x, int64_t n,
-                       int p, int64_t nb, int K, void* stream) {
-  return launch_block_tri<float>(inv, od, oc, cnt, b, x, n, p, nb, K, stream);
+                       const void* cnt, const void* b, void* x,
+                       void* scratch, int64_t n, int p, int64_t nb, int K,
+                       int on_chip, void* stream) {
+  return launch_block_tri<float>(inv, od, oc, cnt, b, x, scratch, n, p, nb,
+                                 K, on_chip, stream);
 }
 
 int cpkt_block_tri_f64(const void* inv, const void* od, const void* oc,
-                       const void* cnt, const void* b, void* x, int64_t n,
-                       int p, int64_t nb, int K, void* stream) {
-  return launch_block_tri<double>(inv, od, oc, cnt, b, x, n, p, nb, K,
-                                  stream);
+                       const void* cnt, const void* b, void* x,
+                       void* scratch, int64_t n, int p, int64_t nb, int K,
+                       int on_chip, void* stream) {
+  return launch_block_tri<double>(inv, od, oc, cnt, b, x, scratch, n, p, nb,
+                                  K, on_chip, stream);
 }
 
 }  // extern "C"

@@ -9,12 +9,15 @@ off-panel entries in ELL rows ``off_data`` / ``off_cols`` with each row's
 
     x_i = inv_i (b_i - off_i x),    i = 0 .. nb-1 in order,
 
-in one launch on a CUDA tensor: one thread block cluster walks the panels,
-reading each row's counted entries and the lower triangle of each inverse
-(the kernel's source says how).  A CPU tensor goes to the plain version,
-``block_tri_solve_plain``, the panel loop of the JAX package.  The
-kernel sums in a fixed order of its own, so it repeats its bits from call
-to call and agrees with the plain version to rounding.  ``LAUNCHES`` counts
+in one launch on a CUDA tensor, at any panel: one thread block cluster
+walks the panels, reading each row's counted entries and the lower
+triangle of each inverse, each block holding the panel's rhs in shared
+memory sized from the panel (the kernel's source says how).  A panel whose
+rhs does not fit in a block's shared memory keeps it in a scratch
+buffer.  A CPU tensor goes to the plain version,
+``block_tri_solve_plain``, the panel loop of the JAX package.  The kernel
+sums in a fixed order of its own, so it repeats its bits from call to
+call and agrees with the plain version to rounding.  ``LAUNCHES`` counts
 the kernel's launches, one a solve.
 """
 from __future__ import annotations
@@ -26,7 +29,6 @@ from .trisolve import BlockTriFactor
 
 LAUNCHES = 0
 
-MAX_PANEL = 1024         # csrc/block_tri.cu kMaxPanel
 MAX_ENTRIES = 1 << 31    # the kernel indexes x with int32 columns
 
 _ENTRY = {torch.float32: "cpkt_block_tri_f32",
@@ -55,6 +57,16 @@ def block_tri_solve_plain(tf: BlockTriFactor,
     return x[: tf.n]
 
 
+def on_chip_fits(tf: BlockTriFactor, dtype: torch.dtype, device) -> bool:
+    """Whether a panel's rhs fits in a block's shared memory (else the
+    kernel keeps it in a scratch buffer)."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    item = torch.empty((), dtype=dtype).element_size()
+    return tf.panel * item <= _build.kernel_library().cpkt_smem_optin(index)
+
+
 def _check(tf: BlockTriFactor, b: torch.Tensor) -> None:
     """Raise on anything the kernel does not take (a CUDA ``b``)."""
     p, nb = tf.panel, tf.nblocks
@@ -66,8 +78,6 @@ def _check(tf: BlockTriFactor, b: torch.Tensor) -> None:
         raise TypeError(f"block_tri: unsupported dtype {b.dtype}")
     if b.device.type != "cuda":
         raise ValueError(f"block_tri: unsupported device {b.device}")
-    if not 1 <= p <= MAX_PANEL:
-        raise ValueError(f"block_tri: panel {p} outside 1..{MAX_PANEL}")
     K = int(tf.off_data.shape[1])
     for label, t, dtype, shape in (
             ("inv_diag", tf.inv_diag, b.dtype, (nb, p, p)),
@@ -96,12 +106,16 @@ def block_tri(tf: BlockTriFactor, b: torch.Tensor) -> torch.Tensor:
     _check(tf, b)
     b = b.contiguous()
     p, nb = tf.panel, tf.nblocks
+    on_chip = on_chip_fits(tf, b.dtype, b.device)
+    scratch = None if on_chip else torch.empty(p, dtype=b.dtype,
+                                               device=b.device)
     x = torch.empty(nb * p, dtype=b.dtype, device=b.device)
     stream = torch.cuda.current_stream(b.device).cuda_stream
     status = getattr(_build.kernel_library(), _ENTRY[b.dtype])(
         tf.inv_diag.data_ptr(), tf.off_data.data_ptr(),
         tf.off_cols.data_ptr(), tf.off_counts.data_ptr(), b.data_ptr(),
-        x.data_ptr(), tf.n, p, nb, int(tf.off_data.shape[1]), stream)
+        x.data_ptr(), 0 if scratch is None else scratch.data_ptr(), tf.n, p,
+        nb, int(tf.off_data.shape[1]), int(on_chip), stream)
     _build.check(status, "block_tri")
     LAUNCHES += 1
     return x[: tf.n]

@@ -4,13 +4,16 @@
 Counterpart of the JAX package's ``precond/df_factor.py::DFTriMat.
 matvec_df``, an XLA ``lax.scan`` over the ELL slots (no Pallas kernel).
 For a (K, n) transposed-ELL matrix with df64 values (``df_factor.DFTriMat``:
-hi and lo f32, int32 columns) and a df64 vector x = (xh, xl),
-``df_tri_matvec`` returns the compensated product (yh, yl): one thread per
-row walks its K slots with the plain version's chain, every operation
-rounded explicitly, so kernel and plain version
-(``df_tri_matvec_plain``) agree bit for bit.  A CPU tensor goes
-to the plain version; on a CUDA tensor the wrapper launches the kernel or
-raises.  ``LAUNCHES`` counts the kernel's launches, one a product.
+hi and lo f32, int32 columns, each row's ``counts``) and a df64 vector
+x = (xh, xl), ``df_tri_matvec`` returns the compensated product (yh, yl):
+one thread per row walks the row's stored slots and then one padding slot
+with the plain version's chain, every operation rounded explicitly.  A
+padding slot maps the sums to a fixed point, so further padding slots
+change no bit, and kernel and plain version (``df_tri_matvec_plain``, every
+slot of every row) agree bit for bit; ``df_tri_matvec_walk`` is the plain
+version in the kernel's order.  A CPU tensor goes to the plain version; on
+a CUDA tensor the wrapper launches the kernel or raises.  ``LAUNCHES``
+counts the kernel's launches, one a product.
 """
 from __future__ import annotations
 
@@ -43,6 +46,31 @@ def df_tri_matvec_plain(t: DFTriMat, x: df64.DF) -> df64.DF:
     return df64.quick_two_sum(acc_h, acc_l)
 
 
+def df_tri_matvec_walk(t: DFTriMat, x: df64.DF) -> df64.DF:
+    """The plain version in kernel B10's order: each row takes the chain
+    step of its ``counts[i]`` stored slots, then, when ``counts[i] < K``,
+    one padding step (dh = dl = 0, column 0), and stops."""
+    xh, xl = x
+    K = t.hi.shape[0]
+    steps = torch.clamp(t.counts.long() + 1, max=K)
+    zero = torch.zeros((), dtype=xh.dtype, device=xh.device)
+    acc_h = torch.zeros(t.n, dtype=xh.dtype, device=xh.device)
+    acc_l = torch.zeros(t.n, dtype=xh.dtype, device=xh.device)
+    for k in range(K):
+        stored = k < t.counts
+        c = torch.where(stored, t.cols[k], 0).long()
+        dh = torch.where(stored, t.hi[k], zero)
+        dl = torch.where(stored, t.lo[k], zero)
+        vh, vl = xh[c], xl[c]
+        p, e = df64.two_prod(dh, vh)
+        e = e + dh * vl + dl * vh
+        s, e2 = df64.two_sum(acc_h, p)
+        step = k < steps
+        acc_h = torch.where(step, s, acc_h)
+        acc_l = torch.where(step, acc_l + (e + e2), acc_l)
+    return df64.quick_two_sum(acc_h, acc_l)
+
+
 def _check(t: DFTriMat, xh: torch.Tensor, xl: torch.Tensor) -> None:
     """Raise on anything the kernel does not take (CUDA operands)."""
     if t.n >= MAX_ENTRIES:
@@ -56,7 +84,8 @@ def _check(t: DFTriMat, xh: torch.Tensor, xl: torch.Tensor) -> None:
             ("xl", xl, torch.float32, (t.n,)),
             ("hi", t.hi, torch.float32, (K, t.n)),
             ("lo", t.lo, torch.float32, (K, t.n)),
-            ("cols", t.cols, torch.int32, (K, t.n))):
+            ("cols", t.cols, torch.int32, (K, t.n)),
+            ("counts", t.counts, torch.int32, (t.n,))):
         if v.dtype != dtype:
             raise TypeError(f"df_tri_matvec: {label} dtype {v.dtype} != "
                             f"{dtype}")
@@ -87,8 +116,8 @@ def df_tri_matvec(t: DFTriMat, x: df64.DF) -> df64.DF:
     stream = torch.cuda.current_stream(xh.device).cuda_stream
     status = _build.kernel_library().cpkt_df_tri_matvec_f32(
         t.hi.data_ptr(), t.lo.data_ptr(), t.cols.data_ptr(),
-        int(t.hi.shape[0]), t.n, xh.data_ptr(), xl.data_ptr(),
-        yh.data_ptr(), yl.data_ptr(), stream)
+        t.counts.data_ptr(), int(t.hi.shape[0]), t.n, xh.data_ptr(),
+        xl.data_ptr(), yh.data_ptr(), yl.data_ptr(), stream)
     _build.check(status, "df_tri_matvec")
     LAUNCHES += 1
     return yh, yl

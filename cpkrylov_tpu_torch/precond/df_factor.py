@@ -40,12 +40,15 @@ class DFTriMat:
     The df64 matvec walks the K ELL slots with a compensated (two_sum
     chained) accumulator, so each row's sum errs by O(eps^2) whatever K.
     On a CUDA tensor it is one launch of the hand-written kernel B10
-    (``cuda_df_tri.py``), else the plain slot loop
+    (``cuda_df_tri.py``), which walks a row's ``counts`` stored slots and
+    one padding slot, else the plain slot loop
     (``cuda_df_tri.df_tri_matvec_plain``); the two agree bit for bit."""
 
     hi: torch.Tensor     # (K, n) f32
     lo: torch.Tensor     # (K, n) f32
     cols: torch.Tensor   # (K, n) int32 column index into x; 0 where empty
+    counts: torch.Tensor  # (n,) int32: a row's entries, in its first
+    #                       counts[i] slots (later slots are (0, 0, 0))
     n: int
 
     def matvec_df(self, x: df64.DF) -> df64.DF:
@@ -77,6 +80,7 @@ def _pack_df_tri(T, device) -> DFTriMat:
         hi=torch.as_tensor(np.ascontiguousarray(hi)).to(device),
         lo=torch.as_tensor(np.ascontiguousarray(lo)).to(device),
         cols=torch.as_tensor(np.ascontiguousarray(cols.T)).to(device),
+        counts=torch.as_tensor(counts.astype(np.int32)).to(device),
         n=int(n))
 
 

@@ -20,13 +20,15 @@ not a multiple of the panel.
   Both packages sum each ELL row and each panel product in their own
   library's order, so they agree to rounding: measured at most 5.3e-14
   (f64) and 3.6e-5 (f32) apart on cvxqp1_m, where the element growth
-  amplifies rounding; each bound is about 10x the reading;
+  amplifies rounding; each bound is about 10x the reading; also at a
+  panel of 2048 (cvxqp1_m's L in 3 panels), above the 1024 that kernel B9
+  once refused;
 * the direct solve of the whole preconditioner factor (both triangles,
   D^-1 and the permutations) on cvxqp1_m in f64, port against JAX;
 * the wrapper: a CPU tensor goes to the plain version and leaves the launch
   counter at 0; operands the kernel does not take (another device or dtype,
   nblocks * panel >= 2**31, a wrong length) raise, checked on ``meta``
-  tensors, which need no memory and no card.
+  tensors, which need no memory and no card; a panel above 1024 is taken.
 """
 import numpy as np
 import pytest
@@ -76,12 +78,14 @@ def _random_lower(n, density, seed):
 def _matrix(case):
     if case in ("L", "U"):
         return _cvxqp1_m_triangles()[case], 256
+    if case == "L_p2048":
+        return _cvxqp1_m_triangles()["L"], 2048
     n, density, panel = {"rand_500_p64": (500, 0.02, 64),
                          "rand_97_p16": (97, 0.1, 16)}[case]
     return _random_lower(n, density, seed=n), panel
 
 
-CASES = ["L", "U", "rand_500_p64", "rand_97_p16"]
+CASES = ["L", "U", "rand_500_p64", "rand_97_p16", "L_p2048"]
 
 
 def _rel(x, ref):
@@ -191,3 +195,8 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         block_tri(big, torch.empty(2**31, dtype=torch.float64, device=meta))
     with pytest.raises(ValueError, match="rhs has shape"):
         block_tri(tf, torch.empty(63, dtype=torch.float64, device=meta))
+    # no bound on the panel: a panel of 2048 fails only for its device
+    wide = _meta_factor(3, 2048, 47)
+    with pytest.raises(ValueError, match="unsupported device"):
+        block_tri(wide, torch.empty(3 * 2048, dtype=torch.float64,
+                                    device=meta))

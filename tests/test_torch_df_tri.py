@@ -25,6 +25,13 @@ for the df64-applied factor (L + I: 69 slots, and J U J: 44 slots, n =
 * the df64-applied direct solve of the whole factor at two refinement
   steps (f32 triangles through blocked substitution, the df64 residuals
   through this product) on cvxqp1_m, port against JAX;
+* the walk of kernel B10 (``df_tri_matvec_walk``: a row's ``counts``
+  stored slots, then one padding slot) equals the plain K-slot loop bit
+  for bit (hi and lo, NaNs by their bits), with x[0], the column every
+  padding slot reads, set to +0, -0, -2.25, 1e-40, 1e35, inf, -inf and
+  NaN, on a triangle with rows of 0, K - 1 and K entries and on cvxqp1_m's;
+* ``counts`` equals the CSR row counts, and a ``DFTriMat`` survives a
+  ``utils/checkpoint.py`` save and reload with it;
 * the wrapper: a CPU tensor goes to the plain version and leaves the launch
   counter at 0; operands the kernel does not take (another device or dtype,
   n >= 2**31, a wrong length) raise, checked on ``meta`` tensors.
@@ -41,7 +48,8 @@ from cpkrylov_tpu.precond import df_factor as jdf
 from cpkrylov_tpu_torch.precond import cuda_df_tri
 from cpkrylov_tpu_torch.precond.cp import assemble_kp, factorize_kp
 from cpkrylov_tpu_torch.precond.cuda_df_tri import (df_tri_matvec,
-                                                    df_tri_matvec_plain)
+                                                    df_tri_matvec_plain,
+                                                    df_tri_matvec_walk)
 from cpkrylov_tpu_torch.precond.df_factor import DFTriMat, _pack_df_tri
 from cpkrylov_tpu_torch.utils.convert import df_factor_from_host
 from cpkrylov_tpu_torch.utils.fixtures import load_fixture
@@ -228,6 +236,7 @@ def _meta_mat(K, n):
     return DFTriMat(hi=torch.empty((K, n), device=meta),
                     lo=torch.empty((K, n), device=meta),
                     cols=torch.empty((K, n), dtype=torch.int32, device=meta),
+                    counts=torch.empty(n, dtype=torch.int32, device=meta),
                     n=n)
 
 
@@ -244,3 +253,77 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
     xb = torch.empty(2**31, device=meta)
     with pytest.raises(ValueError, match=r"2\*\*31"):
         df_tri_matvec(big, (xb, xb))
+
+
+def _ragged_triangle():
+    """A lower triangle of 64 rows with rows of 0, K - 1 and K entries,
+    entries at column 0 among them, and K = 9."""
+    rng = np.random.default_rng(11)
+    n, K = 64, 9
+    rows, cols = [], []
+    for i in range(n):
+        c = {0: 0, 1: 0, 20: K - 1, 21: K, 40: K, 41: K - 1}.get(
+            i, int(rng.integers(0, min(i, K) + 1)))
+        c = min(c, i + 1)
+        chosen = np.sort(rng.choice(i + 1, size=c, replace=False))
+        rows += [i] * c
+        cols += list(chosen)
+    vals = rng.standard_normal(len(rows)) * 10.0 ** rng.integers(-3, 4,
+                                                                 len(rows))
+    return sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+
+
+def _bits(v):
+    return v.view(torch.int32)
+
+
+@pytest.mark.parametrize("x0", [0.0, -0.0, -2.25, 1e-40, 1e35, np.inf,
+                                -np.inf, np.nan])
+@pytest.mark.parametrize("case", ["ragged", "L"])
+def test_walk_equals_the_plain_slot_loop_bitwise(case, x0):
+    T = _ragged_triangle() if case == "ragged" else _matrix("L")
+    t = _pack_df_tri(T, "cpu")
+    K = t.hi.shape[0]
+    counts = t.counts.numpy()
+    if case == "ragged":
+        assert {0, K - 1, K} <= set(counts.tolist())
+    xh, xl = _x(t.n, seed=6)
+    xh[0] = np.float32(x0)
+    xl[0] = np.float32(x0 if x0 == 0 else 0.0)
+    x = (torch.as_tensor(xh), torch.as_tensor(xl))
+    yh, yl = df_tri_matvec_plain(t, x)
+    wh, wl = df_tri_matvec_walk(t, x)
+    assert torch.equal(_bits(yh), _bits(wh))
+    assert torch.equal(_bits(yl), _bits(wl))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_counts_are_the_csr_row_counts(case):
+    T = _matrix(case)
+    t = _pack_df_tri(T, "cpu")
+    csr = sp.csr_matrix(T)
+    csr.sum_duplicates()
+    assert t.counts.dtype == torch.int32 and tuple(t.counts.shape) == (t.n,)
+    np.testing.assert_array_equal(t.counts.numpy(), np.diff(csr.indptr))
+    # a row's entries fill its first counts[i] slots, the rest is (0, 0, 0)
+    K = t.hi.shape[0]
+    empty = np.arange(K)[:, None] >= t.counts.numpy()[None, :]
+    for arr in (t.hi, t.lo, t.cols):
+        assert np.all(arr.numpy()[empty] == 0)
+
+
+def test_df_tri_mat_survives_a_checkpoint(tmp_path):
+    from cpkrylov_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+
+    t = _pack_df_tri(_ragged_triangle(), "cpu")
+    path = str(tmp_path / "t.npz")
+    save_pytree(t, path)
+    for got in (load_pytree(t, path), load_pytree(None, path,
+                                                  device="cpu")):
+        assert isinstance(got, DFTriMat) and got.n == t.n
+        for name in ("hi", "lo", "cols", "counts"):
+            assert torch.equal(getattr(got, name), getattr(t, name))
+    xh, xl = (torch.as_tensor(v) for v in _x(t.n, seed=8))
+    a, b = df_tri_matvec_plain(got, (xh, xl)), df_tri_matvec_plain(t,
+                                                                   (xh, xl))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

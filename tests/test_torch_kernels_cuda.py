@@ -26,8 +26,11 @@ rounded, so it must equal its plain version exactly.  The interleave riffle
 Blocked substitution (B9) sums each row and each panel product in a fixed
 order of its own: held to BAND_TOL against its plain version and scipy on
 the factor of ``cvxqp_kkt("cvxqp3", 2000)``, and bit for bit against a
-second call.  The df64 triangle product (B10) rounds every step of its
-chain explicitly: hi and lo equal its plain version's exactly.
+second call; at panels of 1536 and 2048 on cvxqp1_m's factor, whose
+element growth amplifies rounding, to BLOCK_TOL (``chip_smoke.py``'s).
+The df64 triangle product (B10) rounds every step of its chain
+explicitly: hi and lo equal its plain version's exactly, also with the
+special values of x[0] that its padding slots read.
 """
 import numpy as np
 import pytest
@@ -403,6 +406,9 @@ def test_mixed_device_loop_goes_through_kernels(cuda):
 
 
 BAND_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+# blocked substitution on factors with element growth (chip_smoke.py's
+# BLOCK_TOL: about 10x the largest card reading at cvxqp1_m)
+BLOCK_TOL = {torch.float32: 4e-4, torch.float64: 1e-12}
 
 
 def _banded_lower(n, reach, seed):
@@ -725,6 +731,96 @@ def test_block_tri_kernel_small_panels_and_ragged_n(cuda):
         xp = block_tri_solve_plain(tf, b)
         torch.cuda.synchronize()
         assert _rel2(x, xp) <= BAND_TOL[torch.float64], (n, panel)
+
+
+def _cvxqp1_m_triangles():
+    """(L + I, J U J) of cvxqp1_m's host LDL^T, as scipy CSR."""
+    from cpkrylov_tpu_torch.precond.cp import factorize_kp
+    from cpkrylov_tpu_torch.utils.fixtures import load_fixture
+
+    f = load_fixture("cvxqp1_m")
+    hf = factorize_kp(f.G, f.B, f.C)
+    N = hf.n + hf.m
+    L1 = (hf.fac.L + sp.identity(N, format="csc")).tocsr()
+    rev = np.arange(N - 1, -1, -1)
+    return {"L": L1, "U": L1.T.tocsr()[rev][:, rev].tocsr()}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("panel", [2048, 1536])
+def test_block_tri_kernel_takes_panels_above_1024(cuda, panel, dtype):
+    """Any panel (ROADMAP C.1, repaired): cvxqp1_m's triangles (n = 5,500)
+    at panels of 2048 (3 panels) and 1536 (4 panels), rhs in dynamic shared
+    memory sized from the panel, to BLOCK_TOL of the plain version and of
+    scipy, and bit for bit against a second call."""
+    from cpkrylov_tpu_torch.precond import cuda_block_tri
+    from cpkrylov_tpu_torch.precond.cuda_block_tri import \
+        block_tri_solve_plain
+    from cpkrylov_tpu_torch.precond.trisolve import build_block_tri
+
+    rng = np.random.default_rng(24)
+    for label, T in _cvxqp1_m_triangles().items():
+        tf = build_block_tri(T, dtype, cuda, panel=panel)
+        b64 = rng.standard_normal(T.shape[0]).astype(np.float32)
+        b = torch.as_tensor(b64).to(device=cuda, dtype=dtype)
+        before = cuda_block_tri.LAUNCHES
+        x = cuda_block_tri.block_tri(tf, b)
+        x2 = cuda_block_tri.block_tri(tf, b)
+        assert cuda_block_tri.LAUNCHES == before + 2
+        xp = block_tri_solve_plain(tf, b)
+        torch.cuda.synchronize()
+        assert torch.equal(x, x2), label
+        ref = spla.spsolve_triangular(T, b64.astype(np.float64), lower=True)
+        assert _rel2(x, xp) <= BLOCK_TOL[dtype], label
+        assert _rel2(x, ref) <= BLOCK_TOL[dtype], label
+
+
+def test_block_tri_kernel_keeps_rhs_off_chip_past_shared_memory(
+        cuda, monkeypatch):
+    """A panel whose rhs does not fit in a block's shared memory (here made
+    so by the wrapper's test of it) keeps rhs in the scratch buffer: the
+    same solve at panel 2048 on cvxqp1_m, to BLOCK_TOL of the plain
+    version and scipy, bits repeating."""
+    from cpkrylov_tpu_torch.precond import cuda_block_tri
+    from cpkrylov_tpu_torch.precond.trisolve import build_block_tri
+
+    monkeypatch.setattr(cuda_block_tri, "on_chip_fits", lambda *a: False)
+    rng = np.random.default_rng(27)
+    for label, T in _cvxqp1_m_triangles().items():
+        tf = build_block_tri(T, torch.float64, cuda, panel=2048)
+        b64 = rng.standard_normal(T.shape[0])
+        b = torch.as_tensor(b64, device=cuda)
+        x = cuda_block_tri.block_tri(tf, b)
+        x2 = cuda_block_tri.block_tri(tf, b)
+        xp = cuda_block_tri.block_tri_solve_plain(tf, b)
+        torch.cuda.synchronize()
+        assert torch.equal(x, x2), label
+        ref = spla.spsolve_triangular(T, b64, lower=True)
+        assert _rel2(x, xp) <= BLOCK_TOL[torch.float64], label
+        assert _rel2(x, ref) <= BLOCK_TOL[torch.float64], label
+
+
+def test_df_tri_kernel_walk_keeps_special_x0_bits(cuda):
+    """B10 walks a row's stored slots and one padding slot: with x[0], the
+    column of every padding slot, at -0, 1e35, inf, -inf and NaN, hi and lo
+    still equal the plain K-slot loop's bits (NaNs by their bits)."""
+    from cpkrylov_tpu_torch.precond import cuda_df_tri
+    from cpkrylov_tpu_torch.precond.df_factor import _pack_df_tri
+
+    for T in _cvxqp1_m_triangles().values():
+        t = _pack_df_tri(T, cuda)
+        v = np.random.default_rng(26).standard_normal(t.n) * 10.0
+        for x0 in (-0.0, 1e35, np.inf, -np.inf, np.nan):
+            xh = torch.as_tensor(v.astype(np.float32), device=cuda)
+            xl = torch.as_tensor((v - v.astype(np.float32)).astype(
+                np.float32), device=cuda)
+            xh[0] = x0
+            xl[0] = x0 if x0 == 0 else 0.0
+            yh, yl = cuda_df_tri.df_tri_matvec(t, (xh, xl))
+            ph, pl = cuda_df_tri.df_tri_matvec_plain(t, (xh, xl))
+            torch.cuda.synchronize()
+            assert torch.equal(yh.view(torch.int32), ph.view(torch.int32))
+            assert torch.equal(yl.view(torch.int32), pl.view(torch.int32))
 
 
 def test_df_tri_kernel_equals_plain_bitwise(cuda):

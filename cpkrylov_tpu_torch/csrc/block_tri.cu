@@ -43,8 +43,8 @@
 // Determinism: no atomics; every sum is taken in the same order on every
 // call (per lane in slot order, then the butterfly), so a second call on
 // the same inputs gives the same bits.  The plain version
-// (trisolve.py::block_tri_solve_plain) sums in torch's order, so the two
-// agree to rounding, not bit for bit.
+// (cuda_block_tri.py::block_tri_solve_plain) sums in torch's order, so the
+// two agree to rounding, not bit for bit.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 

@@ -1006,8 +1006,8 @@ def phase_block_kernels(mm, device, results):
                         special=name == "cvxqp3_l" and tag == "t1")
             del t
         if name == "cvxqp1_m":
-            # any panel (ROADMAP C.1): 3 panels of 2048 rows; in f64 the
-            # panel's vectors live in the scratch buffer, not on chip
+            # any panel (ROADMAP C.1): 3 panels of 2048 rows, rhs in
+            # dynamic shared memory (16 KB in f64)
             for label, T in (("L", L1), ("U", U)):
                 tf = build_block_tri(T, torch.float64, device,
                                      panel=WIDE_PANEL)
@@ -1171,7 +1171,7 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
                 f"row_stage_err={stage:.3e} (plain {stage_plain:.3e}, "
                 f"limit {stage_lim:.3e}) repeat_equal={repeat} "
                 f"bound_ms={bms:.4f} ({by}) bytes={nbytes} "
-                f"sequential_stages={2 * tf.nblocks} "
+                f"shape_sequential_stages={2 * tf.nblocks} "
                 f"on_chip={on_chip_fits(tf, dtype, device)}")
         errs = [("plain", err_plain)]
         if ref is not None:
@@ -1198,8 +1198,7 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
                      f"per_panel_us={_fmt(per_panel)} launches_per_call=1 "
                      f"operand_sets={len(sets)}")
             got.update(ms=ms, plain_ms=pms, device_ms=dms,
-                       per_panel_us=per_panel,
-                       sequential_stages=2 * tf.nblocks)
+                       per_panel_us=per_panel)
             del sets
         print(line, flush=True)
         out[tname] = got
@@ -1218,9 +1217,10 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
 
 
 def df_tri_walk(t) -> tuple:
-    """(slots B10 walks, slot steps of its warps): a row's stored slots and
-    one padding slot, min(count + 1, K) chain steps; a warp of 32
-    consecutive rows steps as often as its longest row."""
+    """Shape facts of a df64 triangle, counted from its inputs, not
+    measured: (slots a walk of each row's stored slots and one padding slot
+    takes, min(count + 1, K) a row; slot steps of warps of 32 consecutive
+    rows, each as many as its longest row)."""
     import torch
 
     K = int(t.hi.shape[0])
@@ -1265,9 +1265,10 @@ def hold_df_tri(what, t, device, timing=False, special=False) -> dict:
     bms, by, nbytes, nnz, slot_ms = df_tri_bound(t)
     walked, warp_steps = df_tri_walk(t)
     K, n = (int(d) for d in t.hi.shape)
-    line = (f"kernel df_tri_matvec float32 {what} K={K} n={n} slots={K * n} "
-            f"entries={nnz} slots_walked={walked} "
-            f"warp_slot_steps={warp_steps} bitwise_vs_plain={exact} "
+    line = (f"kernel df_tri_matvec float32 {what} K={K} n={n} "
+            f"shape_slots={K * n} shape_entries={nnz} "
+            f"shape_slots_to_walk={walked} "
+            f"shape_warp_slot_steps={warp_steps} bitwise_vs_plain={exact} "
             f"repeat_equal={repeat} max_abs_err_vs_plain={err_abs:.3e} "
             f"bound_ms={bms:.4f} ({by}) bytes={nbytes} "
             f"slot_bound_ms={slot_ms:.4f}")
@@ -1285,8 +1286,7 @@ def hold_df_tri(what, t, device, timing=False, special=False) -> dict:
             special_ok &= ok
             line += f" bitwise_x0={x0}:{ok}"
     got = dict(bound_ms=bms, bound_by=by, max_abs_err=err_abs,
-               slot_bound_ms=slot_ms, slots=K * n, entries=nnz,
-               slots_walked=walked)
+               slot_bound_ms=slot_ms)
     if timing:
         ms = cuda_time_ms(lambda: df_tri_matvec(t, (xh, xl)), iters=20,
                           warmup=2)
@@ -3193,8 +3193,7 @@ def run_phases(device, profile_dir=None, full_sweep=False) -> list:
             "launches_by_path", "launches_per_call", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "read_floor_ms", "read_floor_device_ms",
-            "slot_bound_ms", "per_panel_us", "sequential_stages", "slots",
-            "entries", "slots_walked")
+            "slot_bound_ms", "per_panel_us")
             if k in entry})
     return kernels
 

@@ -10,17 +10,21 @@ off-panel entries in ELL rows ``off_data`` / ``off_cols`` with each row's
     x_i = inv_i (b_i - off_i x),    i = 0 .. nb-1 in order,
 
 in one launch on a CUDA tensor, at any panel: one thread block cluster
-walks the panels, reading each row's counted entries and the lower
-triangle of each inverse, each block holding the panel's rhs in shared
-memory sized from the panel (the kernel's source says how).  A panel whose
-rhs does not fit in a block's shared memory keeps it in a scratch
-buffer.  A CPU tensor goes to the plain version,
+(16 blocks where the card places one, else 8) walks the panels, each
+block owning every 16th (8th) row, reading each row's counted entries and
+the lower triangle of each inverse, each block holding the panel's rhs in
+shared memory sized from the panel (the kernel's source says how).  A
+panel whose rhs does not fit in a block's shared memory keeps it in a
+scratch buffer.  A CPU tensor goes to the plain version,
 ``block_tri_solve_plain``, the panel loop of the JAX package.  The kernel
 sums in a fixed order of its own, so it repeats its bits from call to
-call and agrees with the plain version to rounding.  ``LAUNCHES`` counts
+call and agrees with the plain version to rounding;
+``block_tri_solve_lanes`` is a plain version that sums in that order.  ``LAUNCHES`` counts
 the kernel's launches, one a solve.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -57,14 +61,68 @@ def block_tri_solve_plain(tf: BlockTriFactor,
     return x[: tf.n]
 
 
+def _lane_sums(terms: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``terms`` (rows, width) in the kernel's order: lane k
+    adds columns k, k + 32, ... in turn, then a butterfly over the 32
+    lanes (xor 16, 8, 4, 2, 1)."""
+    rows, width = terms.shape
+    pad = -width % 32
+    lanes = torch.nn.functional.pad(terms, (0, pad)).view(rows, -1, 32)
+    acc = torch.zeros(rows, 32, dtype=terms.dtype, device=terms.device)
+    for r in range(lanes.shape[1]):
+        acc = acc + lanes[:, r]
+    idx = torch.arange(32, device=terms.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, idx ^ o]
+    return acc[:, 0]
+
+
+def block_tri_solve_lanes(tf: BlockTriFactor,
+                          b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of blocked substitution in kernel B9's order:
+    a row's counted entries (never its padding) and its row of the panel
+    inverse (never above the diagonal) each summed as ``_lane_sums``.  The
+    kernel may fuse a product with its sum, so the two agree to rounding."""
+    panel = tf.panel
+    n_pad = tf.nblocks * panel
+    x = torch.zeros(n_pad, dtype=b.dtype, device=b.device)
+    b_pad = torch.zeros(n_pad, dtype=b.dtype, device=b.device)
+    b_pad[: tf.n] = b
+    K = int(tf.off_data.shape[1])
+    used = torch.arange(K) < tf.off_counts.long()[:, None].cpu()
+    lower = torch.ones(panel, panel).tril().bool()
+    for i in range(tf.nblocks):
+        r0 = i * panel
+        od = tf.off_data[r0: r0 + panel].to(b.dtype)
+        oc = tf.off_cols[r0: r0 + panel].long()
+        terms = torch.where(used[r0: r0 + panel].to(b.device),
+                            od * x[oc], torch.zeros((), dtype=b.dtype))
+        rhs = b_pad[r0: r0 + panel] - _lane_sums(terms)
+        terms = torch.where(lower.to(b.device),
+                            tf.inv_diag[i].to(b.dtype) * rhs[None, :],
+                            torch.zeros((), dtype=b.dtype))
+        x[r0: r0 + panel] = _lane_sums(terms)
+    return x[: tf.n]
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(index: int) -> int:
+    """The most shared memory (bytes) a block may take on CUDA device
+    ``index``, asked of the card once."""
+    limit = int(_build.kernel_library().cpkt_smem_optin(index))
+    if limit < 0:
+        raise RuntimeError(f"block_tri: cannot read the shared memory "
+                           f"limit of CUDA device {index}")
+    return limit
+
+
 def on_chip_fits(tf: BlockTriFactor, dtype: torch.dtype, device) -> bool:
     """Whether a panel's rhs fits in a block's shared memory (else the
     kernel keeps it in a scratch buffer)."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    item = torch.empty((), dtype=dtype).element_size()
-    return tf.panel * item <= _build.kernel_library().cpkt_smem_optin(index)
+    return tf.panel * torch.finfo(dtype).bits // 8 <= _smem_limit(index)
 
 
 def _check(tf: BlockTriFactor, b: torch.Tensor) -> None:

@@ -23,6 +23,8 @@ not a multiple of the panel.
   amplifies rounding; each bound is about 10x the reading; also at a
   panel of 2048 (cvxqp1_m's L in 3 panels), above the 1024 that kernel B9
   once refused;
+* the plain version in kernel B9's order (``block_tri_solve_lanes``)
+  against both, to the same bounds;
 * the direct solve of the whole preconditioner factor (both triangles,
   D^-1 and the permutations) on cvxqp1_m in f64, port against JAX;
 * the wrapper: a CPU tensor goes to the plain version and leaves the launch
@@ -42,8 +44,8 @@ from cpkrylov_tpu.precond import trisolve as jtri
 from cpkrylov_tpu_torch import make_preconditioner
 from cpkrylov_tpu_torch.precond import cuda_block_tri
 from cpkrylov_tpu_torch.precond.cp import factorize_kp
-from cpkrylov_tpu_torch.precond.cuda_block_tri import (block_tri,
-                                                       block_tri_solve_plain)
+from cpkrylov_tpu_torch.precond.cuda_block_tri import (
+    block_tri, block_tri_solve_lanes, block_tri_solve_plain)
 from cpkrylov_tpu_torch.precond.trisolve import (BlockTriFactor,
                                                  build_block_tri, tri_solve)
 from cpkrylov_tpu_torch.utils.fixtures import load_fixture
@@ -142,6 +144,25 @@ def test_plain_matches_jax_and_scipy(case, dtype):
     assert _rel(x, xj.astype(np.float64)) <= TOL[dtype]
     assert _rel(x, ref) <= TOL[dtype]
     assert _rel(xj, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("case", CASES)
+def test_lanes_order_matches_jax_and_scipy(case, dtype):
+    """The plain version in kernel B9's order (32 lane sums and a
+    butterfly a row, padding and the inverse's upper triangle never read)
+    against the JAX package and scipy, to the same bounds."""
+    T, panel = _matrix(case)
+    rng = np.random.default_rng(7)
+    b = rng.standard_normal(T.shape[0]).astype(dtype)
+    ref = spla.spsolve_triangular(T, b.astype(np.float64), lower=True)
+    pt = build_block_tri(T, TORCH[dtype], "cpu", panel=panel)
+    jt = jtri.build_block_tri(T, panel=panel, dtype=dtype)
+    x = block_tri_solve_lanes(pt, torch.as_tensor(b)).numpy()
+    xj = np.asarray(jtri.block_tri_solve(jt, jnp.asarray(b)))
+    assert x.dtype == dtype
+    assert _rel(x, xj.astype(np.float64)) <= TOL[dtype]
+    assert _rel(x, ref) <= TOL[dtype]
 
 
 def test_direct_solve_matches_jax_f64():

@@ -1,136 +1,22 @@
 """A short check of kernels B9 and B10 on the card, for a change to either.
 
-Prints the compiler's register and spill report of both sources
-(``nvcc -Xptxas -v``), builds the kernel library, and holds blocked
-substitution (B9) against its plain version and scipy on cvxqp1_m's
-triangles at panels 256, 16, 40, 1536 and 2048 and on CVXQP3-L's (f64 and
-f32, bits repeating), and the df64 triangle product (B10) bit for bit
-against its plain version on both df64 triangles of each factor, also with
-x[0] at -0, 1e35 and inf; CVXQP3-L's are timed by CUDA events and by the
-profiler's device time (``chip_smoke.device_ms``).  About half a minute
-on the card, far less than ``chip_smoke.py``:
+Runs ``chip_smoke.py``'s own holds, without its other phases: blocked
+substitution (B9, ``chip_smoke.hold_block_tri``) on cvxqp1_m's triangles
+at panels 256 and ``chip_smoke.WIDE_PANEL`` and, timed, on CVXQP3-L's;
+the df64 triangle product (B10, ``chip_smoke.hold_df_tri``) bit for bit on
+both df64 triangles of each, CVXQP3-L's timed and its t1 also with the
+special x[0].  About a minute on the card:
 
     python3 tools/b9_b10_quick.py
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 import subprocess
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-
-PANELS = (256, 16, 40, 1536, 2048)
-
-
-def ptxas_report() -> None:
-    from cpkrylov_tpu_torch import _build
-
-    for src in ("block_tri.cu", "df_tri_matvec.cu"):
-        r = subprocess.run(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-             "-o", os.devnull, os.path.join(_build.CSRC_DIR, src)],
-            capture_output=True, text=True)
-        lines = [ln for ln in r.stderr.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(src, f"rc={r.returncode}", *lines, sep="\n  ", flush=True)
-
-
-def triangles(fac, N):
-    import numpy as np
-    import scipy.sparse as sp
-
-    L1 = (fac.L + sp.identity(N, format="csc")).tocsr()
-    rev = np.arange(N - 1, -1, -1)
-    return L1, L1.T.tocsr()[rev][:, rev].tocsr()
-
-
-def hold_b9(name, T, panel, timing=False) -> None:
-    import numpy as np
-    import scipy.sparse.linalg as spla
-    import torch
-
-    import chip_smoke
-    from cpkrylov_tpu_torch.precond import cuda_block_tri as cbt
-    from cpkrylov_tpu_torch.precond.trisolve import build_block_tri
-    from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
-
-    tf64 = build_block_tri(T, torch.float64, "cuda", panel=panel)
-    b64 = np.random.default_rng(17).standard_normal(tf64.n).astype(
-        np.float32).astype(np.float64)
-    ref = spla.spsolve_triangular(T, b64, lower=True)
-    for dt in (torch.float64, torch.float32):
-        tf = tf64 if dt == torch.float64 else dataclasses.replace(
-            tf64, inv_diag=tf64.inv_diag.float(),
-            off_data=tf64.off_data.float())
-        b = torch.as_tensor(b64).to("cuda", dt)
-        x, x2 = cbt.block_tri(tf, b), cbt.block_tri(tf, b)
-        xp = cbt.block_tri_solve_plain(tf, b)
-        torch.cuda.synchronize()
-        e1 = float((x - xp).double().norm() / xp.double().norm())
-        e2 = float(np.linalg.norm(x.double().cpu().numpy() - ref)
-                   / np.linalg.norm(ref))
-        ok = (torch.equal(x, x2)
-              and max(e1, e2) <= chip_smoke.BLOCK_TOL[str(dt)[6:]])
-        line = (f"b9 {name} panel={panel} {str(dt)[6:]} "
-                f"on_chip={cbt.on_chip_fits(tf, dt, 'cuda')} "
-                f"vs_plain={e1:.3e} vs_scipy={e2:.3e} ok={ok}")
-        if timing:
-            ms = cuda_time_ms(lambda: cbt.block_tri(tf, b), iters=50,
-                              warmup=3)
-            dms = chip_smoke.device_ms(cbt.block_tri, [(tf, b)], iters=48)
-            # as chip_smoke.py measures it: copies rotated past the L2
-            sets = [(tf, b)] + [(dataclasses.replace(
-                tf, inv_diag=tf.inv_diag.clone(),
-                off_data=tf.off_data.clone(), off_cols=tf.off_cols.clone(),
-                off_counts=tf.off_counts.clone()), torch.randn_like(b))
-                for _ in range(2 if dt == torch.float64 else 4)]
-            rms = chip_smoke.device_ms(cbt.block_tri, sets, iters=48)
-            line += (f" ms={ms:.4f} device_ms={chip_smoke._fmt(dms)} "
-                     f"rotated_device_ms={chip_smoke._fmt(rms)}")
-        print(line, flush=True)
-        if not ok:
-            raise SystemExit(f"b9 {name} panel={panel}: not held")
-
-
-def hold_b10(name, T, timing=False) -> None:
-    import numpy as np
-    import torch
-
-    import chip_smoke
-    from cpkrylov_tpu_torch.precond import cuda_df_tri as cdt
-    from cpkrylov_tpu_torch.precond.df_factor import _pack_df_tri
-    from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
-
-    t = _pack_df_tri(T, "cuda")
-    v = np.random.default_rng(19).standard_normal(t.n) * 10.0
-    for x0 in (None, *chip_smoke.DF_SPECIAL_X0):
-        xh = torch.as_tensor(v.astype(np.float32), device="cuda")
-        xl = torch.as_tensor((v - v.astype(np.float32)).astype(np.float32),
-                             device="cuda")
-        if x0 is not None:
-            xh[0] = x0
-            xl[0] = x0 if x0 == 0 else 0.0
-        y = cdt.df_tri_matvec(t, (xh, xl))
-        yp = cdt.df_tri_matvec_plain(t, (xh, xl))
-        torch.cuda.synchronize()
-        ok = all(torch.equal(a.view(torch.int32), c.view(torch.int32))
-                 for a, c in zip(y, yp))
-        line = (f"b10 {name} K={t.hi.shape[0]} n={t.n} x0={x0} "
-                f"bitwise={ok}")
-        if timing and x0 is None:
-            ms = cuda_time_ms(lambda: cdt.df_tri_matvec(t, (xh, xl)),
-                              iters=50, warmup=3)
-            dms = chip_smoke.device_ms(
-                lambda m, h, lo: cdt.df_tri_matvec(m, (h, lo)),
-                [(t, xh, xl)], iters=48)
-            line += f" ms={ms:.4f} device_ms={chip_smoke._fmt(dms)}"
-        print(line, flush=True)
-        if not ok:
-            raise SystemExit(f"b10 {name}: not bit for bit")
 
 
 def main() -> int:
@@ -139,30 +25,29 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("b9_b10_quick: no CUDA device", file=sys.stderr)
         return 2
-    from cpkrylov_tpu_torch import _build
+    import chip_smoke
     from cpkrylov_tpu_torch.precond.cp import factorize_kp
+    from cpkrylov_tpu_torch.precond.df_factor import _pack_df_tri
+    from cpkrylov_tpu_torch.precond.trisolve import build_block_tri
     from cpkrylov_tpu_torch.utils.fixtures import load_fixture
     from cpkrylov_tpu_torch.utils.mm import cvxqp_kkt
 
-    ptxas_report()
-    t0 = time.perf_counter()
-    _build.kernel_library()
-    print(f"build_s={time.perf_counter() - t0:.2f}", flush=True)
     f = load_fixture("cvxqp1_m")
-    hf = factorize_kp(f.G, f.B, f.C)
-    L1, U = triangles(hf.fac, hf.n + hf.m)
-    for panel in PANELS:
-        hold_b9("cvxqp1_m L", L1, panel)
-        hold_b9("cvxqp1_m U", U, panel)
-    hold_b10("cvxqp1_m t1", L1)
-    hold_b10("cvxqp1_m t2", U)
     s = cvxqp_kkt("cvxqp3", "l")
-    h3 = factorize_kp(s.G, s.B, s.C)
-    L3, U3 = triangles(h3.fac, h3.n + h3.m)
-    hold_b9("cvxqp3_l L", L3, 256, timing=True)
-    hold_b9("cvxqp3_l U", U3, 256, timing=True)
-    hold_b10("cvxqp3_l t1", L3, timing=True)
-    hold_b10("cvxqp3_l t2", U3, timing=True)
+    for name, sysm, timing in (("cvxqp1_m", f, False),
+                               ("cvxqp3_l", s, True)):
+        hf = factorize_kp(sysm.G, sysm.B, sysm.C)
+        L1, U = chip_smoke.triangles(hf.fac, hf.n + hf.m)
+        panels = (256,) if timing else (256, chip_smoke.WIDE_PANEL)
+        for label, T in (("L", L1), ("U", U)):
+            for panel in panels:
+                tf = build_block_tri(T, torch.float64, "cuda", panel=panel)
+                chip_smoke.hold_block_tri(f"{name} {label} panel={panel}",
+                                          tf, "cuda", T=T, timing=timing)
+        for tag, T in (("t1", L1), ("t2", U)):
+            chip_smoke.hold_df_tri(f"{name} {tag}", _pack_df_tri(T, "cuda"),
+                                   "cuda", timing=timing,
+                                   special=timing and tag == "t1")
     print("card " + subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,

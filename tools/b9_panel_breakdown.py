@@ -2,28 +2,20 @@
 
 Builds CVXQP3-L's factor with the port (``utils/mm.py``, the JAX sweep's
 system, RCM ordering, panels of 256) and solves with L and U in f64 and
-f32 through two builds with clock stamps, compiled with nvcc into
-``build/b9_breakdown/``:
-
-* ``first``: ``tools/b9_breakdown.cu``, the panel walk of
-  ``csrc/block_tri.cu`` as first ported (rhs a static array of at most
-  1024 rows; a warp a row, two cluster barriers a panel).  Per panel,
-  from the stamps of every warp: ``gathers`` (the slowest warp's
-  off-panel gathers), ``barrier1`` and ``barrier2`` (the shortest wait at
-  each barrier: the wait of the warp that arrived last, the barrier's own
-  cost), ``inverse`` (the slowest warp's row of inv_i against rhs);
-* ``now``: ``csrc/block_tri.cu`` itself built with ``CPKT_B9_STAMPS``
-  (the same walk, rhs in dynamic shared memory).  Per panel:
-  ``gathers``, ``barrier1``, ``inverse``, ``ahead`` (the slowest warp's
-  loads between the second barrier's arrive and wait) and ``barrier2``
-  (the shortest wait after them);
-
-with ``panel``, the median warp's time from the panel's top to its last
-barrier, each summed over the heavy panels (the fewest that hold 95 % of
-the off entries) and the light ones.  The SM clock's rate comes from
-%globaltimer over the ``first`` build's launch.  One stamped solve after
-three warm ones; the package's own kernel is timed beside them by CUDA
-events.
+f32 through ``tools/b9_breakdown.cu``, compiled with nvcc into
+``build/b9_breakdown/``: the panel walk of ``csrc/block_tri.cu`` as first
+ported (an 8-block cluster, rows in consecutive runs over the blocks, a
+warp a row, two cluster barriers a panel), with clock stamps.  Per panel,
+from the stamps of every warp: ``gathers`` (the slowest warp's off-panel
+gathers), ``barrier1`` and ``barrier2`` (the shortest wait at each
+barrier: the wait of the warp that arrived last, the barrier's own cost),
+``inverse`` (the slowest warp's row of inv_i against rhs), and ``panel``
+(the median warp's time from the panel's top to its last barrier), each
+summed over the heavy panels (the fewest that hold 95 % of the off
+entries) and the light ones.  The SM clock's rate comes from
+%globaltimer over the launch.  One stamped solve after three warm ones;
+the stamped walk and the package's kernel (``kernel_ms``) are timed
+beside each other by CUDA events, operands warm.
 
 Run on the card from the repository's root:
 
@@ -50,36 +42,21 @@ WARPS = 32
 CLUSTER = 8
 
 
-def build_libraries():
-    """(the ``first`` build, the package's kernel built with stamps)."""
+def build_library():
+    """The stamped walk, compiled with the package's nvcc flags."""
     from cpkrylov_tpu_torch import _build
 
     os.makedirs(BUILD, exist_ok=True)
-    old = os.path.join(BUILD, "libb9_breakdown.so")
-    new = os.path.join(BUILD, "libb9_now.so")
-    procs = [subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS,
-                               "-shared", "-o", old, SOURCE]),
-             subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS,
-                               "-DCPKT_B9_STAMPS", "-shared", "-o", new,
-                               os.path.join(_build.CSRC_DIR,
-                                            "block_tri.cu")])]
-    if any(proc.wait() != 0 for proc in procs):
-        raise RuntimeError("nvcc failed")
-    dll = ctypes.CDLL(old)
+    out = os.path.join(BUILD, "libb9_breakdown.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared",
+                    "-o", out, SOURCE], check=True)
+    dll = ctypes.CDLL(out)
     P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for name in ("b9_stamped_f32", "b9_stamped_f64"):
         f = getattr(dll, name)
         f.argtypes = [P, P, P, P, P, P, I64, I32, I64, I32, P, P, P]
         f.restype = ctypes.c_int
-    now = ctypes.CDLL(new)
-    for name, argtypes in _build._KERNEL_SIGNATURES.items():
-        if hasattr(now, name):
-            f = getattr(now, name)
-            f.argtypes = list(argtypes)
-            f.restype = _build._RESTYPES.get(name, ctypes.c_int)
-    now.cpkt_b9_set_stamps.argtypes = [P]
-    now.cpkt_b9_set_stamps.restype = ctypes.c_int
-    return dll, now
+    return dll
 
 
 def heavy_panels(tf) -> tuple:
@@ -111,76 +88,17 @@ def summarize(out, ent, heavy, parts: dict) -> dict:
     return out
 
 
-def breakdown_now(now, tf, dtype, label: str, ghz: float) -> dict:
-    """The package's kernel, built with stamps, on one triangle."""
-    import torch
-
-    from cpkrylov_tpu_torch.precond import cuda_block_tri
-    from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
-
-    dev = tf.inv_diag.device
-    tfd = tf if dtype == tf.inv_diag.dtype else dataclasses.replace(
-        tf, inv_diag=tf.inv_diag.to(dtype), off_data=tf.off_data.to(dtype))
-    p, nb = tf.panel, tf.nblocks
-    rng = np.random.default_rng(17)
-    b = torch.as_tensor(rng.standard_normal(tf.n), dtype=dtype, device=dev)
-    x = torch.empty(nb * p, dtype=dtype, device=dev)
-    kstamps = 6
-    stamps = torch.zeros(nb * CLUSTER * WARPS * kstamps, dtype=torch.int64,
-                         device=dev)
-    if now.cpkt_b9_set_stamps(stamps.data_ptr()) != 0:
-        raise RuntimeError("cpkt_b9_set_stamps failed")
-    on_chip = cuda_block_tri.on_chip_fits(tfd, dtype, dev)
-    scratch = torch.empty(p, dtype=dtype, device=dev)
-    fn = getattr(now, "cpkt_block_tri_f64" if dtype == torch.float64
-                 else "cpkt_block_tri_f32")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def run():
-        st = fn(tfd.inv_diag.data_ptr(), tfd.off_data.data_ptr(),
-                tfd.off_cols.data_ptr(), tfd.off_counts.data_ptr(),
-                b.data_ptr(), x.data_ptr(),
-                scratch.data_ptr(), tf.n, p, nb, int(tfd.off_data.shape[1]),
-                int(on_chip), stream)
-        if st != 0:
-            raise RuntimeError(f"stamped kernel: CUDA error {st}")
-
-    for _ in range(4):
-        run()
-    torch.cuda.synchronize()
-    stamped_ms = cuda_time_ms(run, iters=20, warmup=2)
-    run()
-    torch.cuda.synchronize()
-    kernel_ms = cuda_time_ms(lambda: cuda_block_tri.block_tri(tfd, b),
-                             iters=20, warmup=2)
-    warps = min(-(-p // CLUSTER), WARPS)
-    s = stamps.cpu().numpy().reshape(nb, CLUSTER, WARPS, kstamps)[
-        :, :, :warps, :].astype(np.float64)
-    d = np.diff(s, axis=3) / ghz / 1e3             # microseconds
-    parts = {"panel": np.median((s[..., 5] - s[..., 0]) / ghz / 1e3,
-                                axis=(1, 2)),
-             "gathers": d[..., 0].max(axis=(1, 2)),
-             "barrier1": d[..., 1].min(axis=(1, 2)),
-             "inverse": d[..., 2].max(axis=(1, 2)),
-             "ahead": d[..., 3].max(axis=(1, 2)),
-             "barrier2": d[..., 4].min(axis=(1, 2))}
-    ent, heavy = heavy_panels(tf)
-    out = {"build": "now", "what": label, "dtype": str(dtype).split(".")[1],
-           "panels": nb, "panel_rows": p, "off_entries": int(ent.sum()),
-           "on_chip": bool(on_chip), "stamped_kernel_ms": round(stamped_ms, 4),
-           "kernel_ms": round(kernel_ms, 4)}
-    return summarize(out, ent, heavy, parts)
-
-
-def breakdown_first(dll, tf, dtype, label: str) -> dict:
+def breakdown(dll, tf, dtype, label: str) -> dict:
+    """The stamped walk on one triangle, beside the package's kernel."""
     import torch
 
     from cpkrylov_tpu_torch.precond.cuda_block_tri import block_tri
     from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
 
     dev = tf.inv_diag.device
-    inv = tf.inv_diag.to(dtype)
-    od = tf.off_data.to(dtype)
+    tfd = tf if dtype == tf.inv_diag.dtype else dataclasses.replace(
+        tf, inv_diag=tf.inv_diag.to(dtype), off_data=tf.off_data.to(dtype))
+    inv, od = tfd.inv_diag, tfd.off_data
     p, nb, K = tf.panel, tf.nblocks, int(od.shape[1])
     rng = np.random.default_rng(17)
     b = torch.as_tensor(rng.standard_normal(tf.n), dtype=dtype, device=dev)
@@ -203,6 +121,7 @@ def breakdown_first(dll, tf, dtype, label: str) -> dict:
         run()
     torch.cuda.synchronize()
     stamped_ms = cuda_time_ms(run, iters=20, warmup=2)
+    kernel_ms = cuda_time_ms(lambda: block_tri(tfd, b), iters=20, warmup=2)
     run()
     torch.cuda.synchronize()
     c = clock.cpu().numpy().astype(np.float64)
@@ -218,10 +137,11 @@ def breakdown_first(dll, tf, dtype, label: str) -> dict:
              "inverse": d[..., 2].max(axis=(1, 2)),
              "barrier2": d[..., 3].min(axis=(1, 2))}
     ent, heavy = heavy_panels(tf)
-    out = {"build": "first", "what": label,
-           "dtype": str(dtype).split(".")[1], "panels": nb, "panel_rows": p,
-           "off_entries": int(ent.sum()), "sm_ghz": round(float(ghz), 4),
-           "stamped_kernel_ms": round(stamped_ms, 4)}
+    out = {"what": label, "dtype": str(dtype).split(".")[1], "panels": nb,
+           "panel_rows": p, "off_entries": int(ent.sum()),
+           "sm_ghz": round(float(ghz), 4),
+           "stamped_kernel_ms": round(stamped_ms, 4),
+           "kernel_ms": round(kernel_ms, 4)}
     return summarize(out, ent, heavy, parts)
 
 
@@ -243,7 +163,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
-    dll, now = build_libraries()
+    dll = build_library()
     s = cvxqp_kkt("cvxqp3", "l")
     hf = factorize_kp(s.G, s.B, s.C)
     M = build_precond(hf.fac, hf.ksp, hf.n, hf.m,
@@ -254,14 +174,12 @@ def main(argv=None) -> int:
     for label, tf in (("cvxqp3_l L", M.factor.tf1),
                       ("cvxqp3_l U", M.factor.tf2)):
         for dtype in (torch.float64, torch.float32):
-            old = breakdown_first(dll, tf, dtype, label)
-            new = breakdown_now(now, tf, dtype, label, old["sm_ghz"])
-            for r in (old, new):
-                r["card"] = card
-                results.append(r)
-                print("b9_breakdown " + json.dumps(
-                    {k: v for k, v in r.items()
-                     if not k.startswith("per_panel")}), flush=True)
+            r = breakdown(dll, tf, dtype, label)
+            r["card"] = card
+            results.append(r)
+            print("b9_breakdown " + json.dumps(
+                {k: v for k, v in r.items()
+                 if not k.startswith("per_panel")}), flush=True)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

@@ -36,9 +36,17 @@ before its last line:
    ``spsolve_triangular``, with B4's split into its c and scan kernels,
    the bytes it moves, the scan's launch layout, and the scan's read floor
    (the same cluster and per-step slices with no chain between the
-   steps); the CSR SpMV (B5) on AUG2D-L's K_P and CVXQP3-L's A, f32 and
-   f64, bit for bit against its plain version and against scipy, with its
-   bound at both shapes; ``torch.sparse.mm`` timed beside B5 and B1;
+   steps); the CSR SpMV (B5) on AUG2D-L's K_P and CVXQP3-L's A, K_P and
+   B', f32 and f64, bit for bit against its plain version, a second call
+   and the thread-a-row kernel it replaced (``tools/csr_spmv_rowthread.cu``,
+   built beside the package's kernels), and against scipy, with its bound
+   at each shape, and its device time with the operands rotated past the
+   L2 (read in turns with the thread-a-row kernel) and warm, beside an
+   empty kernel on its grid (the launch floor); ``torch.sparse.mm`` timed
+   beside B5 and B1; ``torch.triangular_solve`` on a sparse CSR triangle
+   (cuSPARSE's solve) timed beside B2 (the n = 1.25M bidiagonal), B4
+   (AUG2D-L's L) and B9 (CVXQP3-L's L), f64 and f32, and held against each
+   kernel's solution;
    blocked substitution (B9) on both triangles of CVXQP3-L's factor (69
    panels, timed) and of cvxqp1_m's (22 panels), f64 and f32, against its
    plain version and scipy's ``spsolve_triangular``, row by row, and bit
@@ -456,6 +464,11 @@ def phase_kernels(sysm, device, results):
                 if per_call != 1:
                     raise RuntimeError(f"bidiag_scan: {per_call} counted "
                                        "launches a call")
+                if n == 1_250_000 and not reverse:
+                    lib = library_trisolve("B2 bidiagonal", T, tb, xk,
+                                           SCAN_TOL[tname], device)
+                    if dtype == torch.float64:
+                        scan.update(lib)
                 if n != 1_250_000 or dtype != torch.float64:
                     continue
                 # two operand sets (80 MB) exceed the L2 together
@@ -744,15 +757,14 @@ def phase_mm_setup(device):
 
 
 def phase_mm_kernels(mm, device, results):
-    """B4 and B6 on both triangles of AUG2D-L's factor, B5 on AUG2D-L's K_P
-    and CVXQP3-L's A, f32 and f64."""
+    """B4 and B6 on both triangles of AUG2D-L's factor, f32 and f64, with
+    the library call on L; B5 on AUG2D-L's K_P and CVXQP3-L's A, K_P and
+    B' (``hold_csr_spmv``)."""
     import numpy as np
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
     import torch
 
-    from cpkrylov_tpu_torch.ops.cuda_spmv import csr_matvec_plain, csr_spmv
-    from cpkrylov_tpu_torch.ops.formats import csr_from_scipy
     from cpkrylov_tpu_torch.precond.cuda_tri import (affine_scan,
                                                      affine_scan_plain,
                                                      band_tri_solve,
@@ -773,7 +785,7 @@ def phase_mm_kernels(mm, device, results):
            "U": spla.spsolve_triangular(U, b, lower=False)}
     print(f"kernel band_tri scipy_reference_s={time.perf_counter() - t0:.2f}"
           f" nnz_L1={L1.nnz}", flush=True)
-    del L1, U
+    del U
     tri, scan = results["band_tri"], results["affine_scan"]
     for label, tf64 in (("L", M.factor.tf1), ("U", M.factor.tf2)):
         if not isinstance(tf64, ReducedScanTriFactor):
@@ -791,6 +803,11 @@ def phase_mm_kernels(mm, device, results):
             xp = band_tri_solve_plain(tf, bd)
             torch.cuda.synchronize()
             err_abs = float(torch.max(torch.abs(xk - xp)))
+            if label == "L":
+                lib = library_trisolve("B4 AUG2D-L L", L1, bd, xk,
+                                       BAND_TOL[tname], device)
+                if dtype == torch.float64:
+                    tri.update(lib)
             xk = xk.double().cpu().numpy()
             xp = xp.double().cpu().numpy()
             if label == "U":
@@ -899,63 +916,19 @@ def phase_mm_kernels(mm, device, results):
             if dtype == torch.float32:
                 del tf
             torch.cuda.empty_cache()
-
+        if label == "L":
+            del L1
     csr = results["csr_spmv"]
-    cvx = mm["cvxqp3_l"][0]
-    for dtype in (torch.float64, torch.float32):
-        tname = str(dtype).split(".")[1]
-        for label, mat in (("K_P aug2d_l", hf.ksp), ("A cvxqp3_l", cvx.A)):
-            c = csr_from_scipy(mat, dtype, device)
-            x64 = rng.standard_normal(mat.shape[1])
-            x = torch.as_tensor(x64).to(device=device, dtype=dtype)
-            yk = csr_spmv(c, x)
-            yk2 = csr_spmv(c, x)
-            yp = csr_matvec_plain(c, x)
-            torch.cuda.synchronize()
-            err_abs = float(torch.max(torch.abs(yk - yp)))
-            err_ref = rel_2norm(yk.double().cpu().numpy(),
-                                mat @ x.double().cpu().numpy())
-            ms = cuda_time_ms(lambda: csr_spmv(c, x))
-            pms = cuda_time_ms(lambda: csr_matvec_plain(c, x), iters=20,
-                               warmup=2)
-            sa = torch_sparse_csr(mat, dtype, device)
-            xs = x[:, None]
-            lms = cuda_time_ms(lambda: torch.sparse.mm(sa, xs))
-            print(f"kernel csr_spmv {tname} {label} {mat.shape[0]}x"
-                  f"{mat.shape[1]} nnz={c.nnz} max_abs_err_vs_plain="
-                  f"{err_abs:.3e} repeat_equal={torch.equal(yk, yk2)} "
-                  f"rel_err_vs_scipy_f64={err_ref:.3e} ms={ms:.4f} "
-                  f"plain_ms={pms:.4f} library_ms(torch.sparse.mm)={lms:.4f}",
-                  flush=True)
-            if err_abs != 0.0 or not torch.equal(yk, yk2):
-                raise RuntimeError(f"csr_spmv {tname} {label}: differs from "
-                                   "its plain version or between runs")
-            if not err_ref <= CSR_SCIPY_TOL[tname]:
-                raise RuntimeError(f"csr_spmv {tname} {label}: error vs "
-                                   f"scipy {err_ref:.3e}")
-            if dtype == torch.float64:
-                nrows, ncols = mat.shape
-                bms, by = bound_ms(
-                    12 * c.nnz + 8 * (nrows + 1) + 8 * (ncols + nrows),
-                    2 * c.nnz, tname)
-                # copies of the matrix, so that the operand sets exceed the
-                # L2 together (AUG2D-L's K_P is 20 MB, CVXQP3-L's A 1 MB)
-                copies = max(2, -(-60_000_000 // (12 * c.nnz + 8 * nrows)))
-                sets = [(csr_from_scipy(mat, dtype, device),
-                         torch_sparse_csr(mat, dtype, device),
-                         torch.randn_like(x)) for _ in range(copies)]
-                dms = device_ms(lambda c_, s_, v: csr_spmv(c_, v), sets)
-                ldms = device_ms(lambda c_, s_, v: torch.sparse.mm(
-                    s_, v[:, None]), sets)
-                print(f"kernel csr_spmv {tname} {label} bound_ms={bms:.4f} "
-                      f"({by}) device_ms={_fmt(dms)} library_device_ms="
-                      f"{_fmt(ldms)} operand_sets={copies}", flush=True)
-                if label.startswith("K_P"):
-                    csr.update(ms=ms, plain_ms=pms, library_ms=lms,
-                               bound_ms=bms, bound_by=by, device_ms=dms,
-                               library_device_ms=ldms)
-                del sets
-            del c, sa
+    cvx, hq, _, _ = mm["cvxqp3_l"]
+    for label, mat in (("K_P aug2d_l", hf.ksp), ("A cvxqp3_l", cvx.A),
+                       ("K_P cvxqp3_l", hq.ksp),
+                       ("Bt cvxqp3_l", cvx.B.T.tocsr())):
+        got = hold_csr_spmv(label, mat, device)
+        csr["max_abs_err"] = max(csr["max_abs_err"], got["max_abs_err"])
+        if label == "K_P aug2d_l":
+            csr.update({k: got[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "device_ms", "library_device_ms")})
     torch.cuda.empty_cache()
     phase_block_kernels(mm, device, results)
 
@@ -994,7 +967,8 @@ def phase_block_kernels(mm, device, results):
                                    f"{type(tf).__name__}, not blocked "
                                    "substitution")
             got = hold_block_tri(f"{name} {label}", tf, device, T=T,
-                                 timing=name == "cvxqp3_l")
+                                 timing=name == "cvxqp3_l",
+                                 library=name == "cvxqp3_l" and label == "L")
             blk["max_abs_err"] = max(blk["max_abs_err"],
                                      got["float64"]["max_abs_err"])
             if name == "cvxqp3_l" and label == "L":
@@ -1116,8 +1090,264 @@ def _operand_sets(nbytes, copy, base):
                                                - 1))]
 
 
+# The first port of B5 (a thread a row) and an empty kernel, carried in
+# tools/ to time B5 against in the same run and to read the launch floor;
+# built beside the package's kernels (``start_rowthread_build``).
+ROWTHREAD_SOURCE = os.path.join(ROOT, "tools", "csr_spmv_rowthread.cu")
+ROWTHREAD_LIB = os.path.join(ROOT, "build", "csr_rowthread",
+                             "libcsr_rowthread.so")
+_ROWTHREAD = {}
+
+
+def start_rowthread_build():
+    """Start nvcc on ROWTHREAD_SOURCE (the package's flags), so that it
+    runs beside the package's build; ``rowthread_library`` waits for it."""
+    from cpkrylov_tpu_torch import _build
+
+    os.makedirs(os.path.dirname(ROWTHREAD_LIB), exist_ok=True)
+    _ROWTHREAD["proc"] = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o",
+         ROWTHREAD_LIB, ROWTHREAD_SOURCE], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def rowthread_library():
+    """The loaded library of ROWTHREAD_SOURCE (built now if not started)."""
+    import ctypes
+
+    if "lib" not in _ROWTHREAD:
+        if "proc" not in _ROWTHREAD:
+            start_rowthread_build()
+        proc = _ROWTHREAD["proc"]
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {ROWTHREAD_SOURCE} failed:\n{out}")
+        lib = ctypes.CDLL(ROWTHREAD_LIB)
+        P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        for name in ("csr_rowthread_f32", "csr_rowthread_f64"):
+            getattr(lib, name).argtypes = [P, P, P, I64, P, P, P]
+        lib.empty_launch.argtypes = [I32, I32, P]
+        _ROWTHREAD["lib"] = lib
+    return _ROWTHREAD["lib"]
+
+
+def csr_rowthread(mat, x):
+    """y = mat @ x by the thread-a-row kernel (no launch is counted)."""
+    import torch
+
+    lib = rowthread_library()
+    y = torch.empty(mat.shape[0], dtype=x.dtype, device=x.device)
+    fn = (lib.csr_rowthread_f64 if x.dtype == torch.float64
+          else lib.csr_rowthread_f32)
+    st = fn(mat.indptr.data_ptr(), mat.indices.data_ptr(),
+            mat.data.data_ptr(), mat.shape[0], x.data_ptr(), y.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if st != 0:
+        raise RuntimeError(f"csr_rowthread: CUDA error {st}")
+    return y
+
+
+def empty_launch(blocks: int, threads: int):
+    import torch
+
+    st = rowthread_library().empty_launch(
+        blocks, threads, torch.cuda.current_stream().cuda_stream)
+    if st != 0:
+        raise RuntimeError(f"empty kernel: CUDA error {st}")
+
+
+def hold_csr_spmv(what, mat, device) -> dict:
+    """B5 on one scipy matrix, in f64 and f32: bit for bit against its
+    plain version, the thread-a-row kernel and a second call, and to
+    CSR_SCIPY_TOL against scipy's f64 product.  Timed in f64: ``ms``, ``plain_ms`` and ``library_ms`` (``torch.sparse.mm``) by
+    CUDA events, and device ms a call from profiler traces (``device_ms``)
+    of B5 and the thread-a-row kernel read in turns (B5, row, row, B5), with
+    the matrix and x rotated past the L2 (copies of them) and warm (one
+    operand set, as inside a solve), of the library call, and of an empty
+    kernel on B5's grid (the launch floor); and the bound.  Returns the f64
+    readings and the largest |kernel - plain|."""
+    import numpy as np
+    import torch
+
+    from cpkrylov_tpu_torch.ops import cuda_spmv, formats
+    from cpkrylov_tpu_torch.ops.cuda_spmv import csr_matvec_plain, csr_spmv
+    from cpkrylov_tpu_torch.ops.formats import csr_from_scipy
+    from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
+
+    rng = np.random.default_rng(13)
+    nrows, ncols = mat.shape
+    got = cuda_spmv.layout()
+    want = (formats.TILE_THREADS, formats.MAX_TILE, formats.TILE_HALO)
+    if got != want:
+        raise RuntimeError(f"csr_spmv: the kernel's tiles {got} are not the "
+                           f"packing's {want}")
+    out = {"max_abs_err": 0.0}
+    for dtype in (torch.float64, torch.float32):
+        tname = str(dtype).split(".")[1]
+        c = csr_from_scipy(mat, dtype, device, transpose=False)
+        x = torch.as_tensor(rng.standard_normal(ncols)).to(device=device,
+                                                          dtype=dtype)
+        yk, yk2 = csr_spmv(c, x), csr_spmv(c, x)
+        yp, yr = csr_matvec_plain(c, x), csr_rowthread(c, x)
+        torch.cuda.synchronize()
+        err_abs = float(torch.max(torch.abs(yk - yp))) if nrows else 0.0
+        exact = {"plain": torch.equal(yk, yp),
+                 "repeat": torch.equal(yk, yk2),
+                 "rowthread": torch.equal(yk, yr)}
+        err_ref = rel_2norm(yk.double().cpu().numpy(),
+                            mat @ x.double().cpu().numpy())
+        line = (f"kernel csr_spmv {tname} {what} {nrows}x{ncols} "
+                f"nnz={c.nnz} max_abs_err_vs_plain={err_abs:.3e} "
+                f"equal={exact} rel_err_vs_scipy_f64={err_ref:.3e}")
+        out["max_abs_err"] = max(out["max_abs_err"], err_abs)
+        if dtype == torch.float64:
+            # indptr, values and columns, x read, y written; 2 flops an entry
+            bms, by = bound_ms(12 * c.nnz + 8 * (nrows + 1)
+                               + 8 * (ncols + nrows), 2 * c.nnz, tname)
+            ms = cuda_time_ms(lambda: csr_spmv(c, x))
+            pms = cuda_time_ms(lambda: csr_matvec_plain(c, x), iters=20,
+                               warmup=2)
+            sa = torch_sparse_csr(mat, dtype, device)
+            lms = cuda_time_ms(lambda: torch.sparse.mm(sa, x[:, None]))
+            # copies of the matrix, so that the operand sets exceed the L2
+            # together (AUG2D-L's K_P is 20 MB, CVXQP3-L's A 1 MB)
+            sets = _operand_sets(
+                12 * c.nnz + 8 * nrows + 8 * ncols,
+                lambda: (csr_from_scipy(mat, dtype, device, transpose=False),
+                         torch_sparse_csr(mat, dtype, device),
+                         torch.randn_like(x)), (c, sa, x))
+            warm = [sets[0]]
+            blocks = c.tiles.shape[0] - 1
+
+            def b5(c_, s_, v):
+                return csr_spmv(c_, v)
+
+            def row(c_, s_, v):
+                return csr_rowthread(c_, v)
+
+            turns = [device_ms(fn, sets) for fn in (b5, row, row, b5)]
+            dms = _mean(turns[::3])
+            rdms = _mean(turns[1:3])
+            wdms = device_ms(b5, warm)
+            wrdms = device_ms(row, warm)
+            ldms = device_ms(lambda c_, s_, v: torch.sparse.mm(s_, v[:, None]),
+                             sets)
+            lwdms = device_ms(lambda c_, s_, v: torch.sparse.mm(s_, v[:, None]),
+                              warm)
+            fdms = device_ms(lambda c_, s_, v: empty_launch(
+                blocks, formats.TILE_THREADS), warm)
+            line += (f" bound_ms={bms:.4f} ({by}) ms={ms:.4f} "
+                     f"plain_ms={pms:.4f} library_ms(torch.sparse.mm)="
+                     f"{lms:.4f} device_ms={_fmt(dms)} "
+                     f"turns(b5,row,row,b5)={[_fmt(v) for v in turns]} "
+                     f"rowthread_device_ms={_fmt(rdms)} "
+                     f"warm_device_ms={_fmt(wdms)} "
+                     f"rowthread_warm_device_ms={_fmt(wrdms)} "
+                     f"library_device_ms={_fmt(ldms)} "
+                     f"library_warm_device_ms={_fmt(lwdms)} "
+                     f"launch_floor_device_ms={_fmt(fdms)} "
+                     f"(empty kernel, {blocks}x{formats.TILE_THREADS}) "
+                     f"tile={c.tile} "
+                     f"operand_sets={len(sets)}")
+            out.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                       bound_by=by, device_ms=dms, library_device_ms=ldms,
+                       warm_device_ms=wdms, rowthread_device_ms=rdms,
+                       launch_floor_device_ms=fdms)
+            del sets, warm, sa
+        print(line, flush=True)
+        if not all(exact.values()):
+            raise RuntimeError(f"csr_spmv {tname} {what}: differs from "
+                               f"{[k for k, v in exact.items() if not v]}")
+        if not err_ref <= CSR_SCIPY_TOL[tname]:
+            raise RuntimeError(f"csr_spmv {tname} {what}: error vs scipy "
+                               f"{err_ref:.3e} > {CSR_SCIPY_TOL[tname]}")
+        del c, x, yk, yk2, yp, yr
+    return out
+
+
+# The library call beside the triangle kernels B2, B4/B6 and B9:
+# ``torch.triangular_solve`` on the triangle as a sparse CSR tensor, which on
+# the card runs cuSPARSE's SpSV, its analysis on every call.  The bidiagonal
+# and band triangles have ~1.25M and ~300k dependent levels, so a reading
+# takes at most LIBRARY_TRI_CALLS calls after the first, and none where the
+# first took longer than LIBRARY_TRI_CAP_S (it then stands alone, capped).
+LIBRARY_TRI_CALLS = 3
+LIBRARY_TRI_CAP_S = 5.0
+
+
+def _events_and_device_ms(fn, calls: int):
+    """(CUDA-event ms, device ms from a profiler trace) a call, over
+    ``calls`` calls of ``fn`` in one trace, and the last call's result; the
+    device ms is None where the trace kept no device record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(calls):
+            out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+    us = [getattr(e, "self_device_time_total", None) or
+          e.self_cuda_time_total for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA") and e.count]
+    return (start.elapsed_time(stop) / calls,
+            sum(us) / 1e3 / calls if us else None, out)
+
+
+def library_trisolve(what, T, b, x_kernel, tol: float, device) -> dict:
+    """``torch.triangular_solve(b[:, None], T, upper=False)`` with the lower
+    scipy triangle ``T`` as a sparse CSR tensor on the card (b's dtype),
+    held to ``tol`` (relative 2-norm) against the kernel's solution
+    ``x_kernel``, so that a wrong call cannot pass for a time.  Returns
+    ``library_ms`` (CUDA events) and ``library_device_ms`` (profiler; the
+    analysis kernels included), each a call: over up to LIBRARY_TRI_CALLS
+    calls after a first, or of the first alone where it took longer than
+    LIBRARY_TRI_CAP_S."""
+    import torch
+
+    dtype = b.dtype
+    tname = str(dtype).split(".")[1]
+    A = torch_sparse_csr(T, dtype, device)
+    warm = torch_sparse_csr(T[:2, :2], dtype, device)    # cuSPARSE's handle
+    torch.triangular_solve(b[:2, None], warm, upper=False)
+    torch.cuda.synchronize()
+
+    def call():
+        return torch.triangular_solve(b[:, None], A, upper=False)[0]
+
+    t0 = time.perf_counter()
+    ms, dms, x = _events_and_device_ms(call, 1)
+    first_s = time.perf_counter() - t0
+    err = rel_2norm(x[:, 0].double().cpu().numpy(),
+                    x_kernel.double().cpu().numpy())
+    calls = 1
+    if first_s <= LIBRARY_TRI_CAP_S:
+        calls = LIBRARY_TRI_CALLS
+        ms, dms, _ = _events_and_device_ms(call, calls)
+    print(f"library triangular_solve {tname} {what} n={T.shape[0]} "
+          f"nnz={T.nnz} rel_err_vs_kernel={err:.3e} first_call_s="
+          f"{first_s:.3f} library_ms={ms:.4f} library_device_ms={_fmt(dms)} "
+          f"calls={calls}{' (capped)' if calls == 1 else ''}", flush=True)
+    if not err <= tol:
+        raise RuntimeError(f"torch.triangular_solve {tname} {what}: differs "
+                           f"from the kernel by {err:.3e} > {tol}")
+    del A
+    torch.cuda.empty_cache()
+    return {"library_ms": ms, "library_device_ms": dms}
+
+
+def _mean(values):
+    """The mean of the readings that were measured (None if none was)."""
+    got = [v for v in values if v is not None]
+    return sum(got) / len(got) if got else None
+
+
 def hold_block_tri(what, tf64, device, T=None, dtypes=None,
-                   timing=False) -> dict:
+                   timing=False, library=False) -> dict:
     """B9 on one triangle (a ``BlockTriFactor`` in f64), in each of
     ``dtypes`` (f64 and f32 unless given; the f32 factor holds the same
     numbers rounded once, as an f32 build packs them): against its plain
@@ -1126,7 +1356,9 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
     ``block_tri_stage_limit``, and bit for bit against a second call; each
     held shape goes into HELD.  With ``timing``: ``ms`` and ``plain_ms`` (CUDA events),
     ``device_ms`` (profiler, the factor and copies of it rotated past the
-    L2), the bound.  Returns those readings by dtype name."""
+    L2), the bound.  With ``library``, the library call on ``T``
+    (``library_trisolve``), held to BLOCK_TOL against B9's solution.
+    Returns those readings by dtype name."""
     import dataclasses
 
     import numpy as np
@@ -1201,6 +1433,9 @@ def hold_block_tri(what, tf64, device, T=None, dtypes=None,
                        per_panel_us=per_panel)
             del sets
         print(line, flush=True)
+        if library:
+            got.update(library_trisolve(what, T, b, x, BLOCK_TOL[tname],
+                                        device))
         out[tname] = got
         if not repeat:
             raise RuntimeError(f"block_tri {tname} {what}: a second call "
@@ -1311,17 +1546,29 @@ def hold_df_tri(what, t, device, timing=False, special=False) -> dict:
 
 
 @contextlib.contextmanager
-def counted_calls(shapes=None):
+def counted_calls(shapes=None, csr_operands=None):
     """Counts, while open, the blocked-substitution solves
     (``cuda_block_tri.block_tri``, which ``tri_solve`` calls) and the df64
     triangle products (``cuda_df_tri.df_tri_matvec``, which
     ``DFTriMat.matvec_df`` calls), whatever runs them: on the card each
     must be one launch of B9 or B10 (``check_calls``).  Adds the shape of
-    each call to the set ``shapes`` when one is given."""
+    each call to the set ``shapes`` when one is given, and counts the CSR
+    products (B5) by operand, (rows, columns, entries), into the dict
+    ``csr_operands`` when one is given."""
+    from cpkrylov_tpu_torch.ops import cuda_spmv, spmv
     from cpkrylov_tpu_torch.precond import cuda_block_tri, cuda_df_tri
 
     calls = {"block_tri": 0, "df_tri_matvec": 0}
     solve, product = cuda_block_tri.block_tri, cuda_df_tri.df_tri_matvec
+    csr = cuda_spmv.csr_spmv
+
+    def count_csr(mat, x):
+        key = (*mat.shape, mat.nnz)
+        csr_operands[key] = csr_operands.get(key, 0) + 1
+        return csr(mat, x)
+
+    if csr_operands is not None:
+        cuda_spmv.csr_spmv = spmv.csr_spmv = count_csr
 
     def count_solve(tf, b):
         calls["block_tri"] += 1
@@ -1342,6 +1589,7 @@ def counted_calls(shapes=None):
     finally:
         cuda_block_tri.block_tri = solve
         cuda_df_tri.df_tri_matvec = product
+        cuda_spmv.csr_spmv = spmv.csr_spmv = csr
 
 
 def check_calls(what, calls, launches):
@@ -1407,8 +1655,9 @@ def phase_mm_solve(name, sysm, M, setup, device):
                                                     reset_launches)
 
     opts = cpt.SolverOptions(**MM_SOLVER)
+    operands = {}
     reset_launches()
-    with counted_calls() as calls:
+    with counted_calls(csr_operands=operands) as calls:
         out = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
                         opts=opts, M=M, dtype=torch.float64, device=device)
     launches = launch_counts()
@@ -1436,7 +1685,11 @@ def phase_mm_solve(name, sysm, M, setup, device):
           f"generate_s={setup['generate_s']:.2f} ldl_s={setup['ldl_s']:.2f} "
           f"pack_s={setup['pack_s']:.2f} stime_s={out.stime:.4f} "
           f"ms_per_iter={1e3 * out.stime / max(out.niters, 1):.3f} "
-          f"launches={launches}", flush=True)
+          f"launches={launches} "
+          f"csr_spmv_by_operand(rows,cols,nnz)={operands}", flush=True)
+    if sum(operands.values()) != launches["csr_spmv"]:
+        raise RuntimeError(f"{name}: {sum(operands.values())} CSR products "
+                           f"but {launches['csr_spmv']} B5 launches")
     target, slack, oracle_record = MM_RECORD[name]
     if not out.solved:
         raise RuntimeError(f"{name} not solved: status {out.istatus}")
@@ -3229,6 +3482,7 @@ def main(argv=None) -> int:
     print(f"device torch={torch.__version__} cuda={torch.version.cuda} "
           f"name={torch.cuda.get_device_name(0)} card=\"{card}\"",
           flush=True)
+    start_rowthread_build()
     print(f"build seconds={_build.build_kernels():.2f} "
           f"dir={os.path.relpath(_build.BUILD_DIR, ROOT)}", flush=True)
 

@@ -83,9 +83,14 @@ _KERNEL_SIGNATURES = {
     # q, r, out (5 ints: cluster, rows a block, rows a warp, warps, bytes)
     "cpkt_scan_layout_f32": (_I32, _I32, _P),
     "cpkt_scan_layout_f64": (_I32, _I32, _P),
-    # indptr (int64), indices (int32), data, nrows, x, y, stream
-    "cpkt_csr_spmv_f32": (_P, _P, _P, _I64, _P, _P, _P),
-    "cpkt_csr_spmv_f64": (_P, _P, _P, _I64, _P, _P, _P),
+    # indptr (int64), indices (int32), data, tiles (int64: the first row of
+    # each tile), ntiles, tile (entries a tile), nrows, nnz, x, y, stream
+    "cpkt_csr_spmv_f32": (_P, _P, _P, _P, _I64, _I32, _I64, _I64, _P, _P,
+                          _P),
+    "cpkt_csr_spmv_f64": (_P, _P, _P, _P, _I64, _I32, _I64, _I64, _P, _P,
+                          _P),
+    # out (3 ints: threads a block, largest tile, halo)
+    "cpkt_csr_spmv_layout": (_P,),
     # src, dst, n, m, c, itemsize (4 or 8), stream
     "cpkt_interleave": (_P, _P, _I64, _I64, _I64, _I32, _P),
     "cpkt_uninterleave": (_P, _P, _I64, _I64, _I64, _I32, _P),
@@ -105,7 +110,7 @@ _KERNEL_SIGNATURES = {
 
 
 # functions that return something else than a cudaError_t
-_RESTYPES = {"cpkt_smem_optin": _I64}
+_RESTYPES = {"cpkt_smem_optin": _I64, "cpkt_csr_spmv_layout": None}
 
 
 class BuildError(Exception):

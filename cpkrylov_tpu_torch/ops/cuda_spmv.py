@@ -9,10 +9,20 @@ int8 bucket maps only work around the TPU's lack of a fast gather.  Nor
 does the port renumber these matrices by RCM as ``pack_sym_pgell`` does:
 RCM changes only which x entries a row gathers, not the product.
 
+The kernel splits the work by stored entries: block t takes the tile of
+``mat.tile`` entries from entry t * tile, and the rows that start in it
+(``mat.tiles``, the row split ``ops/formats.py`` computes when it packs the
+CSR).  Its threads load the tile's values and columns (and a few entries
+past it) and all their gathers of x at once, and write the products to
+shared memory; then one thread a row adds its row's products, in stored
+order, reading any past the held entries from device memory
+(``csr_walk`` lists those sums, for the CPU tests of the split).  So each row is still one sum from 0
+over its entries in stored order, every multiply and add rounded once, as
+``csr_matvec_plain`` forms it: the two agree bit for bit and repeat from
+run to run.
+
 ``csr_spmv`` launches the kernel for a CUDA tensor and raises on anything
-it does not take; a CPU tensor goes to ``csr_matvec_plain``.  Both sum each
-row's products in stored column order, every multiply and add rounded
-once, so they agree bit for bit and repeat from run to run.  ``rmatvec``
+it does not take; a CPU tensor goes to ``csr_matvec_plain``.  ``rmatvec``
 is the same function on the stored transpose.  ``LAUNCHES`` counts kernel
 launches (one per product).
 """
@@ -21,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .formats import CSR
+from .formats import CSR, TILE_HALO
 
 LAUNCHES = 0
 
@@ -49,6 +59,31 @@ def csr_matvec_plain(mat: CSR, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def csr_walk(mat: CSR) -> list:
+    """The kernel's sums over ``mat``, as (t, row, rs, held, re) in tile
+    order: tile t sums row ``row``, entries rs..held-1 from the products
+    it holds in shared memory (its tile and TILE_HALO entries past it) and
+    held..re-1 from device memory."""
+    indptr = mat.indptr.tolist()
+    tiles = mat.tiles.tolist()
+    sums = []
+    for t in range(len(tiles) - 1):
+        end = t * mat.tile + mat.tile + TILE_HALO
+        for r in range(tiles[t], tiles[t + 1]):
+            rs, re = indptr[r], indptr[r + 1]
+            sums.append((t, r, rs, min(re, end), re))
+    return sums
+
+
+def layout() -> tuple:
+    """(threads a block, largest tile, halo) of the built kernel."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    _build.kernel_library().cpkt_csr_spmv_layout(out)
+    return tuple(out)
+
+
 def csr_spmv(mat: CSR, x: torch.Tensor) -> torch.Tensor:
     """y = mat @ x: the CUDA kernel for a CUDA tensor, else the plain
     version."""
@@ -64,14 +99,16 @@ def csr_spmv(mat: CSR, x: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"csr_spmv: matrix dtype {mat.data.dtype} != vector "
                         f"dtype {x.dtype}")
     for name, t in (("data", mat.data), ("indices", mat.indices),
-                    ("indptr", mat.indptr)):
+                    ("indptr", mat.indptr), ("tiles", mat.tiles)):
         if t.device != x.device:
             raise ValueError(f"csr_spmv: {name} on {t.device}, x on "
                              f"{x.device}")
         if t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"csr_spmv: {name} must be a contiguous vector")
-    if mat.indices.dtype != torch.int32 or mat.indptr.dtype != torch.int64:
-        raise ValueError("csr_spmv: indices must be int32 and indptr int64")
+    if mat.indices.dtype != torch.int32 or mat.indptr.dtype != torch.int64 \
+            or mat.tiles.dtype != torch.int64:
+        raise ValueError("csr_spmv: indices must be int32, indptr and tiles "
+                         "int64")
     if mat.indptr.shape[0] != nrows + 1 or mat.indices.shape != \
             mat.data.shape:
         raise ValueError("csr_spmv: inconsistent CSR arrays")
@@ -84,7 +121,8 @@ def csr_spmv(mat: CSR, x: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = getattr(lib, _ENTRY[x.dtype])(
         mat.indptr.data_ptr(), mat.indices.data_ptr(), mat.data.data_ptr(),
-        nrows, x.data_ptr(), y.data_ptr(), stream)
+        mat.tiles.data_ptr(), mat.tiles.shape[0] - 1, mat.tile, nrows,
+        mat.nnz, x.data_ptr(), y.data_ptr(), stream)
     _build.check(status, "csr_spmv")
     LAUNCHES += 1
     return y

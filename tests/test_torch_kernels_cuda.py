@@ -32,6 +32,8 @@ The df64 triangle product (B10) rounds every step of its chain
 explicitly: hi and lo equal its plain version's exactly, also with the
 special values of x[0] that its padding slots read.
 """
+import functools
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -518,14 +520,34 @@ def test_scan_layout_fits_one_block_per_sm(cuda, dtype, q, r):
     assert lay["ring_bytes"] + 2 * 1024 * item <= 232_448 - 2048
 
 
+@functools.lru_cache(maxsize=1)
 def _csr_cases():
+    """B5's operands: small MM systems; CVXQP3-L's A, K_P and B (its B'
+    through rmatvec: rows of 0-8 entries); and the row split's edge cases:
+    a row of 5,000 entries beside short and empty rows (its tail past the
+    tile read from device memory), fewer rows than a block, entries that
+    fill their tiles exactly with empty rows after them, and a matrix with
+    no entries."""
     from cpkrylov_tpu_torch.precond.cp import assemble_kp
     from cpkrylov_tpu_torch.utils.mm import aug_kkt, cvxqp_kkt
 
     q = cvxqp_kkt("cvxqp3", 2000)
     a = aug_kkt("2d", 40)
+    ql = cvxqp_kkt("cvxqp3", "l")
+    long_row = sp.random(200, 6000, density=4e-4, random_state=5,
+                         format="lil")
+    long_row[37, 500:5500] = np.random.default_rng(4).standard_normal(5000)
+    full_tiles = sp.lil_matrix((40, 30))     # 2 tiles of 256, 8 empty rows
+    full_tiles[:32, :16] = np.random.default_rng(5).standard_normal((32, 16))
     return {"cvxqp3_A": q.A, "cvxqp3_B": q.B,
-            "aug2d_K_P": assemble_kp(a.G, a.B, a.C), "aug2d_B": a.B}
+            "aug2d_K_P": assemble_kp(a.G, a.B, a.C), "aug2d_B": a.B,
+            "cvxqp3_l_A": ql.A, "cvxqp3_l_K_P": assemble_kp(ql.G, ql.B,
+                                                            ql.C),
+            "cvxqp3_l_B": ql.B, "long_row": long_row.tocsr(),
+            "few_rows": sp.random(5, 40, density=0.3, random_state=6,
+                                  format="csr"),
+            "full_tiles": full_tiles.tocsr(),
+            "no_entries": sp.csr_matrix((70, 30))}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -550,8 +572,31 @@ def test_csr_kernel_matches_plain_bitwise(cuda, dtype):
         assert torch.equal(y, yp) and torch.equal(z, zp), name
         assert torch.equal(cuda_spmv.csr_spmv(c, x), y), name   # repeats
         xr = x.double().cpu().numpy()
-        assert _rel2(y, mat @ xr) <= (1e-6 if dtype == torch.float32
-                                      else 1e-14), name
+        tol = 1e-6 if dtype == torch.float32 else 1e-14
+        if name == "long_row":  # a sum of k products: within ~k eps
+            tol = max(tol, 5000 * torch.finfo(dtype).eps)
+        if mat.nnz:
+            assert _rel2(y, mat @ xr) <= tol, name
+        else:
+            assert not torch.any(y) and not torch.any(z), name
+
+
+def test_csr_kernel_refuses_a_row_split_it_was_not_packed_with(cuda):
+    """B5 takes the row split ``csr_from_scipy`` packs: a tile that is not
+    a multiple of its block, or too few tiles, is refused at launch (the
+    wrapper raises; nothing falls back to the plain version)."""
+    import dataclasses
+
+    from cpkrylov_tpu_torch.ops.cuda_spmv import csr_spmv
+    from cpkrylov_tpu_torch.ops.formats import csr_from_scipy
+
+    mat = sp.random(3000, 3000, density=0.01, random_state=3, format="csr")
+    c = csr_from_scipy(mat, torch.float64, cuda, transpose=False)
+    x = torch.ones(3000, dtype=torch.float64, device=cuda)
+    for bad in (dataclasses.replace(c, tile=300),
+                dataclasses.replace(c, tiles=c.tiles[:-1])):
+        with pytest.raises(RuntimeError, match="csr_spmv: CUDA error"):
+            csr_spmv(bad, x)
 
 
 def test_new_wrappers_raise_on_bad_operands(cuda):

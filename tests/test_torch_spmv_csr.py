@@ -13,7 +13,14 @@ products in stored column order.
 * ``rmatvec`` of the rectangular B (1500 x 2000) through the stored
   transpose against scipy's ``B.T @ y``;
 * the layout: int32 columns, int64 row pointers, the transpose packed once
-  (and left out for K_P), ``utils/convert.csr_from_numpy``.
+  (and left out for K_P), ``utils/convert.csr_from_numpy``;
+* kernel B5's row split (``formats.csr_tiles``, ``cuda_spmv.csr_walk``),
+  for a matrix and its stored transpose: each row is summed once, by the
+  tile it starts in, over its entries in stored order, for empty rows, a
+  row of 5,000 entries beside short ones (its tail past the held entries
+  read from device memory), fewer rows than a block, a ragged last tile,
+  entries that fill their tiles exactly with empty rows after them, and a
+  matrix with no entries; the tile size by entry count.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,8 +31,11 @@ import torch
 from cpkrylov_tpu.ops.pallas_spmv import pgell_matvec
 from cpkrylov_tpu.ops.pgell import pack_sym_pgell
 from cpkrylov_tpu_torch.ops import cuda_spmv, spmv
-from cpkrylov_tpu_torch.ops.cuda_spmv import csr_matvec_plain, csr_rmatvec
-from cpkrylov_tpu_torch.ops.formats import CSR, csr_from_scipy
+from cpkrylov_tpu_torch.ops.cuda_spmv import (csr_matvec_plain, csr_rmatvec,
+                                              csr_walk)
+from cpkrylov_tpu_torch.ops.formats import (CSR, MAX_TILE, TILE_BLOCKS,
+                                            TILE_HALO, TILE_THREADS,
+                                            csr_from_scipy, csr_tile)
 from cpkrylov_tpu_torch.precond.cp import assemble_kp, pack_device_format
 from cpkrylov_tpu_torch.utils.convert import csr_from_numpy
 from cpkrylov_tpu_torch.utils.mm import cvxqp_kkt
@@ -118,3 +128,61 @@ def test_cpu_products_count_no_launch(cvxqp3):
     assert torch.equal(csr_matvec_plain(empty, torch.ones(4,
                                                           dtype=torch.float64)),
                        torch.zeros(3, dtype=torch.float64))
+
+
+def _walk_case(name):
+    rng = np.random.default_rng(4)
+    if name == "empty_rows":          # 300 of CVXQP3's 2000 B' rows
+        return cvxqp_kkt("cvxqp3", 2000).B.T.tocsr()
+    if name == "long_row":
+        m = sp.random(200, 6000, density=4e-4, random_state=5, format="lil")
+        m[37, 500:5500] = rng.standard_normal(5000)
+        return m.tocsr()
+    if name == "few_rows":
+        return sp.random(5, 40, density=0.3, random_state=6, format="csr")
+    if name == "ragged":
+        return sp.random(97, 120, density=0.05, random_state=7, format="csr")
+    if name == "full_tiles":          # 2 tiles of 256, then 8 empty rows
+        m = sp.lil_matrix((40, 30))
+        m[:32, :16] = rng.standard_normal((32, 16))
+        return m.tocsr()
+    return sp.csr_matrix((70, 30))    # no entries
+
+
+WALK_CASES = ["empty_rows", "long_row", "few_rows", "ragged", "full_tiles",
+              "no_entries"]
+
+
+@pytest.mark.parametrize("side", ["matrix", "transpose"])
+@pytest.mark.parametrize("name", WALK_CASES)
+def test_walk_sums_each_row_once_from_its_tile(name, side):
+    mat = _walk_case(name)
+    c = csr_from_scipy(mat, torch.float64, "cpu")
+    if side == "transpose":
+        mat, c = mat.T.tocsr(), c.t
+    tiles, tile, n = c.tiles.tolist(), c.tile, mat.shape[0]
+    assert tile == TILE_THREADS     # these matrices have few entries
+    assert len(tiles) - 1 == max(1, -(-mat.nnz // tile))
+    assert tiles[0] == 0 and tiles[-1] == n
+    assert all(a <= b for a, b in zip(tiles, tiles[1:]))
+    rows = []
+    for t, r, rs, held, re in csr_walk(c):
+        assert (rs, re) == (mat.indptr[r], mat.indptr[r + 1])
+        # the row starts in tile t (trailing empty rows in the last)
+        assert t * tile <= rs
+        assert rs < (t + 1) * tile or (t == len(tiles) - 2 and rs == re)
+        assert held == min(re, (t + 1) * tile + TILE_HALO)
+        rows.append(r)
+    assert rows == list(range(n))
+    if name == "long_row" and side == "matrix":   # its tail from memory
+        _, _, rs, held, re = [s for s in csr_walk(c) if s[1] == 37][0]
+        assert re - rs == 5000 and held - rs <= tile + TILE_HALO
+    if name == "full_tiles" and side == "matrix":
+        assert tiles == [0, 16, 40]
+
+
+def test_tile_size():
+    assert csr_tile(0) == csr_tile(TILE_THREADS * TILE_BLOCKS) == 256
+    assert csr_tile(TILE_THREADS * TILE_BLOCKS + 1) == 512
+    assert csr_tile(1_095_251) == 768               # AUG2D-L's K_P
+    assert csr_tile(10 ** 9) == MAX_TILE

@@ -108,13 +108,17 @@ before its last line:
    bounds, and each rank to B4, B6 and B5 (the A_dS products) launched;
 14. dist_mixed: ``dist_solve_mixed`` on the same ranks and system (f32
    inner solves on the slices, the f64 true residual on the host) to
-   1e-6 |b|;
+   1e-6 |b|; and, for api_parity (19), on the same ranks:
+   ``dist_solve(halo=False)`` with the replicated factor (every block
+   all-gathered, no neighbour exchange) held as in 13, and
+   ``dist_solve_mixed`` with one f32 preconditioner built before it, for
+   two right-hand sides, each to 1e-6 |b| with no host factorization;
 15. dist_nccl1: one NCCL rank on the card, ``dist_solve`` CPMINRES, device
    tensors straight to the collectives, held as in 13.
 
-Between 10 and 11 run the phases of the Maros-Meszaros sweep and the
-auxiliaries (the counters reset before each, their launches listed per
-path):
+Between 10 and 11 run the phases of the Maros-Meszaros sweep, the
+caller-facing options and the auxiliaries (the counters reset before
+each, their launches listed per path):
 
 16. mm_sweep: ``BASELINE.json`` configs[2], the six solvers at the JAX
    sweep's settings (``benchmarks/bench_mm_sweep.py:73-74, 141-155``) on
@@ -139,11 +143,22 @@ path):
 18. operator_a: ``BASELINE.json`` configs[3], CVXQP3-L with A given only as
    a callable (B5 on the card) and two forced refinement steps, within
    +-1 iteration and 1.1 x the error of the explicit-A solve;
-19. checkpoint: CVXQP3-L's f64 and mixed f32 preconditioners saved,
+19. api_parity: what a caller of the JAX package can pass.
+   ``solve(..., spmv_format="csr")`` on the main system: first B5 held at
+   its A, B, B' and K_P (``hold_csr_spmv``), then the solve (its own
+   preconditioner, K_P in CSR), 12 +- 1 iterations, the true residual,
+   x within 1e-8 of the DIA solve, B5 launched on each of the four
+   operands and B1 never; ``solve_mixed(lean_inner=False)`` on main_mixed's
+   preconditioner, to the f64 contract with more B2 launches an inner
+   iteration than the lean run; CVXQP3-L with A given as
+   ``ell_from_scipy(A)`` and as ``bsr_from_scipy(A, 8)`` (plain PyTorch
+   products that sum each row in stored order: each repeats its bits and
+   equals B5's), within +-1 iteration and 1e-10 of the CSR-A solve's x;
+20. checkpoint: CVXQP3-L's f64 and mixed f32 preconditioners saved,
    loaded into templates on the card and from the file alone (timed
    against the f64 build's LDL^T and packing), held bit for bit (direct
    solve, full solve);
-20. subsystems: ``solve(debug=True)``, ``validate_system``,
+21. subsystems: ``solve(debug=True)``, ``validate_system``,
    ``check_finite``, ``matmat`` of AUG2D-L's K_P against B5 column by
    column, and ``examples/exprog1_torch.py`` run to its end.
 
@@ -1999,7 +2014,7 @@ def phase_main_mixed(sysm, device):
     # inner preconditioner solve_mixed runs (lean: factor exact at f32).
     solver = cpt.prepare_mixed_device(
         "cpminres", sysm.b, sysm.A, sysm.B, sysm.C,
-        _lean_inner_options(M32), opts,
+        _lean_inner_options(M32, True), opts,
         inner_stagwin=MIXED_INNER_STAGWIN, device=device)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -2036,7 +2051,9 @@ def phase_main_mixed(sysm, device):
             raise RuntimeError(f"main_mixed: {name} launched "
                                f"{launches[name]} times (< {bound})")
     check_riffle(M32.factor.pin, launches, out.niters, "main_mixed")
-    return launches, M32
+    lean = dict(launches=launches, niters=out.niters, nouter=out.nouter,
+                inner=list(out.inner_niters), stime=out.stime)
+    return launches, M32, lean
 
 
 def phase_solvers_banded(sysm, M, device):
@@ -2209,6 +2226,7 @@ def _dist_solves_rank(comm, n, m):
                                              unshard_vector)
     from cpkrylov_tpu_torch.parallel.mixed import build_dist_precond
     from cpkrylov_tpu_torch.parallel.schur import SchurFactor
+    from cpkrylov_tpu_torch.precond import ldl_host
     from cpkrylov_tpu_torch.utils.fixtures import banded_saddle_system
     from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
                                                     reset_launches)
@@ -2297,6 +2315,15 @@ def _dist_solves_rank(comm, n, m):
               dict(form=type(Mr.factor.tf1).__name__))
     del plan_r
 
+    # api_parity: the replicated solve planned with no halo block
+    def run_halo_off():
+        res, x1, x2 = dist_solve(comm, "cpminres", sysm.b, sysm.A, sysm.B,
+                                 sysm.C, sysm.G, opts=opts, M=Mr,
+                                 halo=False)
+        return res.niters, both(x1, x2)
+
+    solve_run("api_halo_off", 0.0, run_halo_off, {}, cold=False)
+
     # the hand-fused CPMINRES on the b2 = 0 system, halo A and C products
     t0 = clock()
     blocks = partition_blocks(sysm.A, sysm.B, sysm.C, comm, dtype=f64)
@@ -2364,6 +2391,40 @@ def _dist_solves_rank(comm, n, m):
 
     # one run: every call of dist_solve_mixed builds its f32 factor anew
     solve_run("mixed", 0.0, run_mixed, mixed, cold=False)
+
+    # api_parity: one f32 preconditioner for two right-hand sides, the
+    # host factorizations counted from its build on
+    fresh_peak()
+    factorize = ldl_host.factorize
+    built = [0]
+
+    def counted(*a, **k):
+        built[0] += 1
+        return factorize(*a, **k)
+
+    ldl_host.factorize = counted
+    try:
+        t0 = clock()
+        M32 = build_dist_precond(sysm.G, sysm.B, sysm.C, comm,
+                                 precond_opts=popts, dtype=torch.float32)
+        build_s = clock() - t0
+        for i, rhs in enumerate((sysm.b, api_rhs(n, m))):
+            info = {"factorizations_before": built[0]}
+
+            def run_reuse():
+                mo = dist_solve_mixed(
+                    comm, "cpminres", rhs, sysm.A, sysm.B, sysm.C, sysm.G,
+                    opts=cpt.SolverOptions(**MIXED_SOLVER),
+                    inner_stagwin=MIXED_INNER_STAGWIN, M=M32)
+                info.update(solved=mo.solved, nouter=mo.nouter,
+                            inner=list(mo.inner_niters), ptime_s=mo.ptime,
+                            factorizations_after=built[0])
+                return mo.niters, np.asarray(mo.x)
+
+            solve_run(f"api_mixed_reuse{i}", build_s if i == 0 else 0.0,
+                      run_reuse, info, cold=False)
+    finally:
+        ldl_host.factorize = factorize
     return out
 
 
@@ -2537,6 +2598,8 @@ def phase_dist(sysm, M, device):
     if not mixed["solved"]:
         raise RuntimeError(f"dist_mixed not solved: {mixed}")
     launches["dist_mixed"] = _check_dist_mixed(ranks, sysm, card)
+    launches["api_parity_dist"] = _check_api_dist(ranks, sysm, ref["b"],
+                                                  card)
 
     t0 = time.perf_counter()
     nccl = run_ranks(_dist_nccl_rank, 1, n, m, backend="nccl",
@@ -2576,6 +2639,60 @@ def _check_dist_mixed(ranks, sysm, card):
     if not (np.all(np.isfinite(x)) and true_rel <= 1e-6):
         raise RuntimeError(f"dist_mixed: true residual {true_rel:.3e}")
     return _rank_launches("dist_mixed", per_rank, NEED_SCHUR)
+
+
+def api_rhs(n, m):
+    """The second right-hand side of api_parity's distributed mixed
+    solves."""
+    import numpy as np
+
+    return np.random.default_rng(1).standard_normal(n + m)
+
+
+def _check_api_dist(ranks, sysm, ref, card):
+    """api_parity on dist's ranks: ``dist_solve(halo=False)`` held as the
+    other distributed solves (serial count +-1, x within DIST_X_TOL) with
+    no neighbour exchange, and ``dist_solve_mixed`` with one prebuilt f32
+    preconditioner for two right-hand sides, each to the f64 contract with
+    no host factorization.  Returns the launches summed over the ranks."""
+    import numpy as np
+
+    total = _check_dist("api_parity", "api_halo_off", ranks, *ref, sysm.b,
+                        sysm.K, card, NEED_REPLICATED)
+    exchanges = [r["api_halo_off"]["calls"]["exchange"] for r in ranks]
+    if any(exchanges):
+        raise RuntimeError(f"api_parity halo=False: {exchanges} neighbour "
+                           "exchanges")
+    for i, rhs in enumerate((sysm.b, api_rhs(sysm.n, sysm.m))):
+        key = f"api_mixed_reuse{i}"
+        per_rank = [r[key] for r in ranks]
+        r0 = per_rank[0]
+        true_rel = float(np.linalg.norm(rhs - sysm.K @ r0["x"])
+                         / np.linalg.norm(rhs))
+        built = [p["factorizations_after"] - p["factorizations_before"]
+                 for p in per_rank]
+        print(f"api_parity dist_mixed M reused rhs={i} ranks={len(ranks)} "
+              f"solved={r0['solved']} nouter={r0['nouter']} "
+              f"inner={r0['inner']} "
+              f"build_s={[round(p['setup_s'], 3) for p in per_rank]} "
+              f"ptime_s={[round(p['ptime_s'], 3) for p in per_rank]} "
+              f"stime_s={[round(p['solve_s'], 4) for p in per_rank]} "
+              f"factorizations={built} true_rel_resid={true_rel:.4e} "
+              f"collectives={[p['calls'] for p in per_rank]} "
+              f"launches={[p['launches'] for p in per_rank]} "
+              f"card=\"{card}\"", flush=True)
+        if not (r0["solved"] and np.all(np.isfinite(r0["x"]))
+                and true_rel <= 1e-6):
+            raise RuntimeError(f"api_parity dist_mixed rhs {i}: solved "
+                               f"{r0['solved']}, true residual "
+                               f"{true_rel:.3e}")
+        if any(built):
+            raise RuntimeError(f"api_parity dist_mixed rhs {i}: a call with "
+                               f"M factorized {built} times")
+        for k, v in _rank_launches(f"api_parity dist_mixed {i}", per_rank,
+                                   NEED_SCHUR).items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -3080,6 +3197,240 @@ def phase_operator_a(mm, device, card: str):
     return launches
 
 
+# ``api_parity``: what a caller of the JAX package can pass, on the card.
+# The main path's count and the CVXQP3-L count are held to +-1, and x to
+# the default layout's solve: 1e-8 relative on the main system (the same
+# factor; B5 and B1 may sum a row in other orders), 1e-10 on CVXQP3-L
+# (ELL and BSR sum each row in B5's order, so their products' bits are
+# B5's).
+API_MAIN_X_TOL = 1e-8
+API_MM_X_TOL = 1e-10
+
+
+def _api_main_csr(sysm, M, device, results):
+    """``solve(..., spmv_format="csr")`` on the main system: B5 held at A,
+    B, B' and K_P first (``hold_csr_spmv``), then the solve, which builds
+    its own preconditioner with K_P in CSR; B5 must carry every product and
+    B1 none.  Returns the solve's launches."""
+    import numpy as np
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.ops.formats import CSR
+    from cpkrylov_tpu_torch.precond.cp import assemble_kp
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    mats = {"main_A": sysm.A, "main_B": sysm.B, "main_Bt": sysm.B.T,
+            "main_K_P": assemble_kp(sysm.G, sysm.B, sysm.C)}
+    for what, mat in mats.items():      # canonical, as the packing makes it
+        mats[what] = mat.tocsr(copy=True)
+        mats[what].sum_duplicates()
+    held = {}
+    for what, mat in mats.items():
+        held[what] = hold_csr_spmv(what, mat, device)
+        torch.cuda.empty_cache()
+    res = results["csr_spmv"]
+    res["max_abs_err"] = max(res["max_abs_err"],
+                             *(h["max_abs_err"] for h in held.values()))
+    popts = cpt.PrecondOptions(residual_update=True, nitref=1,
+                               force_itref=True)
+    opts = cpt.SolverOptions(atol=0.0, rtol=1e-6, itmax=200)
+    ref = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
+                    device=device, dtype=torch.float64, opts=opts,
+                    precond_opts=popts, M=M)
+    operands = {}
+    reset_launches()
+    with counted_calls(csr_operands=operands):
+        out = cpt.solve("cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G,
+                        device=device, dtype=torch.float64, opts=opts,
+                        precond_opts=popts, spmv_format="csr")
+    launches = launch_counts()
+    x = out.x.cpu().numpy()
+    true_rel = float(np.linalg.norm(sysm.b - sysm.K @ x)
+                     / np.linalg.norm(sysm.b))
+    rel_x = rel_2norm(x, ref.x.cpu().numpy())
+    by_operand = {what: operands.get((*mat.shape, mat.nnz), 0)
+                  for what, mat in mats.items()}
+    res["api_parity_main_system"] = {
+        what: {"rows": mats[what].shape[0], "cols": mats[what].shape[1],
+               "nnz": int(mats[what].nnz), "ms": h["ms"],
+               "device_ms": h["device_ms"], "bound_ms": h["bound_ms"],
+               "bound_by": h["bound_by"], "launches": by_operand[what]}
+        for what, h in held.items()}
+    A_mat = getattr(out.A_op, "mat", None)
+    print(f"api_parity main_csr cpminres f64 spmv_format=csr "
+          f"n={sysm.n} m={sysm.m} solved={out.solved} iters={out.niters} "
+          f"(dia {ref.niters}) ptime_s={out.ptime:.3f} "
+          f"stime_s={out.stime:.4f} (dia {ref.stime:.4f}) "
+          f"true_rel_resid={true_rel:.3e} rel_x_vs_dia={rel_x:.3e} "
+          f"A={type(A_mat).__name__} b5_by_operand={by_operand} "
+          f"launches={launches}", flush=True)
+    if not (out.solved and np.all(np.isfinite(x))
+            and x.shape == (sysm.n + sysm.m,)):
+        raise RuntimeError("api_parity main_csr: not solved or not finite")
+    if abs(out.niters - BANDED_ITERS[0]) > BANDED_ITERS[1]:
+        raise RuntimeError(f"api_parity main_csr: {out.niters} iterations, "
+                           f"not {BANDED_ITERS[0]} +- {BANDED_ITERS[1]}")
+    if not true_rel <= 1e-6:
+        raise RuntimeError(f"api_parity main_csr: true residual "
+                           f"{true_rel:.3e} > 1e-6")
+    if not rel_x <= API_MAIN_X_TOL:
+        raise RuntimeError(f"api_parity main_csr: x off the DIA solve's by "
+                           f"{rel_x:.3e}")
+    if not isinstance(A_mat, CSR):
+        raise RuntimeError(f"api_parity main_csr: A applied as "
+                           f"{type(A_mat).__name__}, not CSR")
+    if launches["dia_spmv"] != 0 or not all(by_operand.values()):
+        raise RuntimeError(f"api_parity main_csr: B1 launched "
+                           f"{launches['dia_spmv']} times, B5 by operand "
+                           f"{by_operand}")
+    if sum(operands.values()) != launches["csr_spmv"]:
+        raise RuntimeError(f"api_parity main_csr: {sum(operands.values())} "
+                           f"CSR products but {launches['csr_spmv']} B5 "
+                           "launches")
+    check_riffle(M.factor.pin, launches, out.niters, "api_parity main_csr")
+    return launches
+
+
+def _api_main_mixed(sysm, M32, lean, device):
+    """``solve_mixed(lean_inner=False)`` on the main system with main_mixed's
+    f32 preconditioner: the f64 contract, and more B2 launches an inner
+    iteration than main_mixed's lean run (``lean``: its launches, passes
+    and inner counts), since the caller's refinement now runs.  Returns the
+    run's launches."""
+    import numpy as np
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+
+    opts = cpt.SolverOptions(**MIXED_SOLVER)
+
+    def run():
+        return cpt.solve_mixed(
+            "cpminres", sysm.b, sysm.A, sysm.B, sysm.C, sysm.G, M=M32,
+            device=device, device_resident=True, opts=opts,
+            inner_stagwin=MIXED_INNER_STAGWIN, lean_inner=False)
+
+    run()                                   # cold, as main_mixed's first
+    reset_launches()
+    out = run()
+    launches = launch_counts()
+    true_rel = float(np.linalg.norm(sysm.b - sysm.K @ out.x)
+                     / np.linalg.norm(sysm.b))
+    per_iter = launches["bidiag_scan"] / max(out.niters, 1)
+    lean_per_iter = lean["launches"]["bidiag_scan"] / max(lean["niters"], 1)
+    print(f"api_parity main_mixed lean_inner=False solved={out.solved} "
+          f"nouter={out.nouter} inner={list(out.inner_niters)} "
+          f"stime_s={out.stime:.4f} true_rel_resid={true_rel:.3e} "
+          f"b2_per_inner_iter={per_iter:.2f} (lean: nouter={lean['nouter']} "
+          f"inner={lean['inner']} stime_s={lean['stime']:.4f} "
+          f"b2_per_inner_iter={lean_per_iter:.2f}) launches={launches}",
+          flush=True)
+    if not (out.solved and out.inner_outputs == ()
+            and np.all(np.isfinite(out.x)) and true_rel <= 1e-6):
+        raise RuntimeError(f"api_parity main_mixed lean_inner=False: solved "
+                           f"{out.solved}, true residual {true_rel:.3e}")
+    if not per_iter > lean_per_iter:
+        raise RuntimeError(f"api_parity main_mixed lean_inner=False: "
+                           f"{per_iter:.2f} B2 launches an inner iteration, "
+                           f"the lean run {lean_per_iter:.2f}")
+    check_riffle(M32.factor.pin, launches, out.niters,
+                 "api_parity main_mixed")
+    return launches
+
+
+def _api_mm_formats(mm, device):
+    """CVXQP3-L with A given as ``ell_from_scipy(A)`` and as
+    ``bsr_from_scipy(A, 8)`` (plain PyTorch products, no kernel of their
+    own, each row summed in stored order): each product repeats its bits
+    and equals B5's on the CSR bit for bit, each solve takes the CSR-A
+    solve's count +-1 with x within API_MM_X_TOL of it.  Returns the
+    launches of both solves."""
+    import numpy as np
+    import torch
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.ops import spmv
+    from cpkrylov_tpu_torch.ops.formats import (bsr_from_scipy,
+                                                csr_from_scipy,
+                                                ell_from_scipy)
+    from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
+                                                    reset_launches)
+    from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
+
+    sysc, _, Mc, _ = mm["cvxqp3_l"]
+    opts = cpt.SolverOptions(**MM_SOLVER)
+    ref = cpt.solve("cpminres", sysc.b, sysc.A, sysc.B, sysc.C, sysc.G,
+                    opts=opts, M=Mc, dtype=torch.float64, device=device)
+    xref = ref.x.cpu().numpy()
+    contract = MM_SOLVER["atol"] + MM_SOLVER["rtol"] * np.linalg.norm(sysc.b)
+    v = torch.as_tensor(np.random.default_rng(21).standard_normal(
+        sysc.A.shape[1])).to(device)
+    A_csr = csr_from_scipy(sysc.A, torch.float64, device)
+    csr_ms = cuda_time_ms(lambda: spmv.matvec(A_csr, v))
+    total = {}
+    for kind, build in (("ell", lambda: ell_from_scipy(sysc.A,
+                                                       device=device)),
+                        ("bsr", lambda: bsr_from_scipy(sysc.A, 8,
+                                                       device=device))):
+        A_dev = build()
+        y1, y2 = spmv.matvec(A_dev, v), spmv.matvec(A_dev, v)
+        torch.cuda.synchronize()
+        repeat = torch.equal(y1, y2)
+        same_as_b5 = torch.equal(y1, spmv.matvec(A_csr, v))
+        err = rel_2norm(y1.cpu().numpy(), sysc.A @ v.cpu().numpy())
+        ms = cuda_time_ms(lambda: spmv.matvec(A_dev, v))
+        reset_launches()
+        out = cpt.solve("cpminres", sysc.b, A_dev, sysc.B, sysc.C, sysc.G,
+                        opts=opts, M=Mc, dtype=torch.float64, device=device)
+        launches = launch_counts()
+        x = out.x.cpu().numpy()
+        rnorm = float(np.linalg.norm(sysc.b - sysc.K @ x))
+        rel_x = rel_2norm(x, xref)
+        print(f"api_parity cvxqp3_l A={kind} ({type(A_dev).__name__}, "
+              f"shape={A_dev.shape}) product_repeat_bits={repeat} "
+              f"product_bits_equal_b5={same_as_b5} "
+              f"product_rel_err_vs_scipy={err:.3e} product_ms={ms:.4f} "
+              f"(B5 {csr_ms:.4f}) solved={out.solved} iters={out.niters} "
+              f"(csr A {ref.niters}) rel_x_vs_csr_A={rel_x:.3e} "
+              f"x_bitwise_csr_A={np.array_equal(x, xref)} "
+              f"true_resid_over_contract={rnorm / contract:.4f} "
+              f"stime_s={out.stime:.4f} (csr A {ref.stime:.4f}) "
+              f"launches={launches}", flush=True)
+        if not (repeat and same_as_b5 and err <= CSR_SCIPY_TOL["float64"]):
+            raise RuntimeError(f"api_parity {kind}: product repeat {repeat}, "
+                               f"equal to B5 {same_as_b5}, error vs scipy "
+                               f"{err:.3e}")
+        if not (out.solved and abs(out.niters - ref.niters) <= 1
+                and rel_x <= API_MM_X_TOL):
+            raise RuntimeError(f"api_parity {kind}: solved {out.solved}, "
+                               f"{out.niters} iterations against "
+                               f"{ref.niters}, x off by {rel_x:.3e}")
+        if not rnorm <= MM_TRUE_RESID["cvxqp3_l"] * contract:
+            raise RuntimeError(f"api_parity {kind}: true residual "
+                               f"{rnorm:.4e} > contract {contract:.4e}")
+        for k, c in launches.items():
+            total[k] = total.get(k, 0) + c
+        del A_dev, y1, y2
+    return total
+
+
+def phase_api_parity(sysm, M, M32, lean, mm, device, results):
+    """What a caller of the JAX package can pass, on the card (phase 19):
+    ``spmv_format="csr"`` on the main system, ``lean_inner=False`` on
+    main_mixed, and CVXQP3-L with A in ELL and in BSR.  (Its distributed
+    part runs on dist's ranks.)  Returns the launches of its solves."""
+    total = {}
+    for part in (_api_main_csr(sysm, M, device, results),
+                 _api_main_mixed(sysm, M32, lean, device),
+                 _api_mm_formats(mm, device)):
+        for k, c in part.items():
+            total[k] = total.get(k, 0) + c
+    return total
+
+
 def phase_checkpoint(mm, kept, device, card: str):
     """``save_pytree`` / ``load_pytree`` on the card: CVXQP3-L's f64
     preconditioner (``mm_setup``) and its mixed f32 one (``mm_mixed``),
@@ -3343,7 +3694,7 @@ def _timed(name, fn, *args):
 
 
 def run_phases(device, profile_dir=None, full_sweep=False) -> list:
-    """Phases 3-20 (and the profile when asked); returns the kernels' JSON
+    """Phases 3-21 (and the profile when asked); returns the kernels' JSON
     entries."""
     import torch
 
@@ -3392,8 +3743,8 @@ def run_phases(device, profile_dir=None, full_sweep=False) -> list:
                                      device)
     by_path["main_path"], M = _timed("main_path", phase_main_path, sysm,
                                      device)
-    by_path["main_mixed"], M32 = _timed("main_mixed", phase_main_mixed,
-                                        sysm, device)
+    by_path["main_mixed"], M32, lean = _timed("main_mixed",
+                                              phase_main_mixed, sysm, device)
     by_path["solvers_banded"] = _timed("solvers_banded",
                                        phase_solvers_banded, sysm, M, device)
     for name in ("aug2d_l", "cvxqp3_l"):
@@ -3407,6 +3758,9 @@ def run_phases(device, profile_dir=None, full_sweep=False) -> list:
                                        device, card, results)
     by_path["operator_a"] = _timed("operator_a", phase_operator_a, mm,
                                    device, card)
+    by_path["api_parity"] = _timed("api_parity", phase_api_parity, sysm, M,
+                                   M32, lean, mm, device, results)
+    torch.cuda.empty_cache()
     by_path["checkpoint"] = _timed("checkpoint", phase_checkpoint, mm, kept,
                                    device, card)
     by_path["subsystems"] = _timed("subsystems", phase_subsystems, mm,
@@ -3446,7 +3800,7 @@ def run_phases(device, profile_dir=None, full_sweep=False) -> list:
             "launches_by_path", "launches_per_call", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "read_floor_ms", "read_floor_device_ms",
-            "slot_bound_ms", "per_panel_us")
+            "slot_bound_ms", "per_panel_us", "api_parity_main_system")
             if k in entry})
     return kernels
 

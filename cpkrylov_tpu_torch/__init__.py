@@ -26,7 +26,8 @@ from .mixed import MixedSolveOutput, prepare_mixed_device, solve_mixed
 from .operators.linop import (FunctionOperator, MatrixOperator,
                               aslinearoperator)
 from .ops.dia import DIA
-from .ops.formats import CSR, Diagonal, csr_from_scipy
+from .ops.formats import (CSR, ELL, Diagonal, csr_from_scipy,
+                          ell_from_scipy)
 from .precond.cp import CPPrecond, CPState, make_preconditioner
 from .solvers.common import KrylovResult
 from .solvers.cpcg import cpcg
@@ -37,7 +38,7 @@ from .solvers.cpminres import cpminres
 from .solvers.cpsymmlq import cpsymmlq
 
 __all__ = [
-    "CSR", "DIA", "Diagonal", "csr_from_scipy",
+    "CSR", "ELL", "DIA", "Diagonal", "csr_from_scipy", "ell_from_scipy",
     "MatrixOperator", "FunctionOperator", "aslinearoperator",
     "PrecondOptions", "SolverOptions",
     "CPPrecond", "CPState", "make_preconditioner",

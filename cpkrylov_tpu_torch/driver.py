@@ -7,11 +7,12 @@ in the solve's own dtype:
   * shift the system so the RHS becomes [b1'; 0] when b2 != 0 (l.152-160),
   * run the kernel (l.163), un-shift (l.166-173), attach ptime/stime.
 
-Explicit host blocks are moved to ``device`` once per call: A and B as DIA
-when their natural-order diagonals pass the fill gate (``ops/dia.py``,
-kernel B1), else CSR (kernel B5, with B's transpose for ``B'y``); C =
-delta*I as ``Diagonal``.  ``refine=`` routes the solve
-through the mixed-precision outer refinement (``mixed.solve_mixed``).
+Explicit host blocks are moved to ``device`` once per call: by default A
+and B as DIA when their natural-order diagonals pass the fill gate
+(``ops/dia.py``, kernel B1), else CSR (kernel B5, with B's transpose for
+``B'y``); C = delta*I as ``Diagonal``.  ``spmv_format`` forces a layout.
+``refine=`` routes the solve through the mixed-precision outer refinement
+(``mixed.solve_mixed``).
 """
 from __future__ import annotations
 
@@ -24,8 +25,9 @@ import torch
 
 from .config import PrecondOptions, SolverOptions
 from .operators.linop import aslinearoperator
-from .ops.dia import pack_dia
-from .precond.cp import CPPrecond, make_preconditioner
+from .ops.dia import MAX_FILL_RATIO, pack_dia
+from .precond.cp import (CPPrecond, check_spmv_format,
+                        make_preconditioner)
 from .solvers import SOLVERS
 from .solvers.common import KrylovResult
 from .utils.device import resolve_device, torch_dtype
@@ -50,14 +52,20 @@ class SolveOutput:
     A_op: object               # the device operator A was applied through
 
 
-def _device_operand(X, dtype, device):
-    """Explicit host block -> device operator: DIA when the natural-order
-    pack passes the fill gate, else Diagonal/CSR (aslinearoperator)."""
+def _device_operand(X, dtype, device, spmv_format: str = "auto"):
+    """Explicit host block -> device operator, by ``spmv_format`` (as
+    ``precond.cp.pack_device_format`` lays out K_P): "auto" packs
+    natural-order DIA when it passes the fill gate, "dia" without the
+    gate, and a diagonal block under "auto" and every block under "csr"
+    or "pgell" take Diagonal/CSR (aslinearoperator).  Anything else (a
+    container, a tensor, a callable) is wrapped as it is."""
     if sp.issparse(X) or isinstance(X, np.ndarray):
         is_diag = (X.shape[0] == X.shape[1]
                    and sp.issparse(X) and X.nnz <= X.shape[0])
-        if not is_diag:
-            packed = pack_dia(X, dtype=dtype, device=device)
+        if spmv_format == "dia" or (spmv_format == "auto" and not is_diag):
+            packed = pack_dia(X, dtype=dtype, device=device,
+                              max_fill_ratio=(0.0 if spmv_format == "dia"
+                                              else MAX_FILL_RATIO))
             if packed is not None:
                 return aslinearoperator(packed)
     return aslinearoperator(X, dtype=dtype, device=device)
@@ -87,6 +95,7 @@ def solve(method, b, A, B, C, G, *,
           opts: SolverOptions | None = None,
           precond_opts: PrecondOptions | None = None,
           backend: str = "auto", ordering="auto", panel: int = 256,
+          spmv_format: str = "auto", tile_rows: int = 2048,
           dtype=None, device=None, M: CPPrecond | None = None,
           refine: bool | str = "auto", debug: bool = False) -> SolveOutput:
     """Solve the regularized saddle-point system [A B'; B -C] [x1;x2] = b.
@@ -98,6 +107,12 @@ def solve(method, b, A, B, C, G, *,
     lives on ``device``: the CUDA card by default, "cpu" on request; the
     card without CUDA raises.  ``dtype`` defaults to the rhs dtype.  Pass
     ``M`` to reuse a built preconditioner.
+
+    ``spmv_format`` sets the device layout of A, B and K_P: "auto" (DIA
+    where the natural-order diagonals pass the fill gate, else CSR), "dia"
+    (DIA without the gate), "csr" or "pgell" (CSR: kernel B5, the port of
+    the PGELL kernel).  ``tile_rows``, the height of PGELL pages, exists
+    only on a TPU and has no effect here.
 
     ``refine`` controls the mixed-precision outer refinement: f32 solves
     become the inner loop of a true-residual refinement (``solve_mixed``)
@@ -114,6 +129,7 @@ def solve(method, b, A, B, C, G, *,
         method = method.__name__
     if method not in SOLVERS:
         raise ValueError(f"unknown solver {method!r}")
+    check_spmv_format(spmv_format)
     device = resolve_device(device)
     if isinstance(b, torch.Tensor):
         b = b.detach().cpu().numpy()
@@ -138,6 +154,7 @@ def solve(method, b, A, B, C, G, *,
         mout = solve_mixed(method, b, A, B, C, G, opts=opts,
                            precond_opts=precond_opts, backend=backend,
                            ordering=ordering, panel=panel, M=M,
+                           spmv_format=spmv_format, tile_rows=tile_rows,
                            device=device)
         last = mout.inner_outputs[-1] if mout.inner_outputs else None
         x = torch.as_tensor(mout.x).to(device)
@@ -159,12 +176,13 @@ def solve(method, b, A, B, C, G, *,
     if M is None:
         M = make_preconditioner(G, B, C, options=precond_opts,
                                 backend=backend, ordering=ordering,
-                                panel=panel, dtype=dtype, device=device)
+                                panel=panel, spmv_format=spmv_format,
+                                dtype=dtype, device=device)
     ptime = time.perf_counter() - t0
 
-    A_op = _device_operand(A, dtype, device)
+    A_op = _device_operand(A, dtype, device, spmv_format)
     C_op = aslinearoperator(C, dtype=dtype, device=device)
-    B_op = _device_operand(B, dtype, device)
+    B_op = _device_operand(B, dtype, device, spmv_format)
     shift = bool(np.any(b[n:]))                     # reg_cpkrylov.m:154
     b_dev = torch.as_tensor(b).to(device=device, dtype=dtype)
     sync(device)

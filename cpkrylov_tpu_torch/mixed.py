@@ -43,17 +43,17 @@ import scipy.sparse as sp
 import torch
 
 from .config import PrecondOptions, SolverOptions
-from .driver import _solve_core, solve
+from .driver import _device_operand, _solve_core, solve
 from .operators.linop import aslinearoperator
 from .ops import df64
-from .precond.cp import make_preconditioner
+from .precond.cp import check_spmv_format, make_preconditioner
 from .utils.device import resolve_device
 from .utils.profiling import MIXED_LOOP_SPAN, MIXED_SPAN
 from .utils.timing import sync
 
 _TINY32 = float(np.finfo(np.float32).tiny)
-# Relative reduction asked of each f32 inner solve: about the f32
-# stagnation floor (the JAX package's default).
+# The default relative reduction asked of each f32 inner solve: about the
+# f32 stagnation floor (the JAX package's default).
 INNER_RTOL = 1.0e-4
 
 
@@ -87,14 +87,17 @@ class MixedSolveOutput:
     inner_outputs: tuple       # per-pass SolveOutput (host loop only)
 
 
-def _lean_inner_options(M32):
-    """Strip per-application refinement AND the GHN update from the inner
-    preconditioner when the f32 build probe certified the factor exact at
-    f32 (``factor_nitref == 0``): refinement's accuracy target is subsumed
-    by the outer loop, and GHN fed unrefined f32 applications turns their
-    ~1e-7 error into indefiniteness (the JAX package measured a breakdown
-    at iteration 1 on the 1.25M-row bench system)."""
-    if (M32.factor_nitref == 0
+def _lean_inner_options(M32, lean_inner: bool):
+    """With ``lean_inner``, strip per-application refinement AND the GHN
+    update from the inner preconditioner when the f32 build probe
+    certified the factor exact at f32 (``factor_nitref == 0``):
+    refinement's accuracy target is subsumed by the outer loop, and GHN fed
+    unrefined f32 applications turns their ~1e-7 error into indefiniteness
+    (the JAX package measured a breakdown at iteration 1 on the 1.25M-row
+    bench system).  Without it, the caller's options stand (literal
+    per-application parity).  Shared by the host and device loops and the
+    distributed solve."""
+    if (lean_inner and M32.factor_nitref == 0
             and (M32.options.nitref > 0 or M32.options.force_itref
                  or M32.options.residual_update)):
         return dataclasses.replace(
@@ -107,27 +110,36 @@ def _lean_inner_options(M32):
 def solve_mixed(method, b, A, B, C, G, *,
                 opts: SolverOptions | None = None,
                 precond_opts: PrecondOptions | None = None,
+                inner_rtol: float = INNER_RTOL,
                 inner_stagwin: int = 30,
                 max_outer: int = 40,
+                lean_inner: bool = True,
                 backend: str = "auto", ordering="auto", panel: int = 256,
+                spmv_format: str = "auto", tile_rows: int = 2048,
                 M=None, device=None,
                 device_resident: bool | str = "auto") -> MixedSolveOutput:
     """Solve [A B'; B -C][x1;x2] = b to f64 accuracy with f32 work on
     ``device`` (default the CUDA card; "cpu" on request).
 
     ``opts.atol``/``opts.rtol`` set the OUTER (true-residual) tolerance:
-    converged when ``||b - K x|| <= atol + rtol ||b||``.  Each f32 inner
-    solve is asked for a relative reduction of ``INNER_RTOL``;
-    ``inner_stagwin`` bounds its stagnation.  When the factor is exact at
-    f32 the inner preconditioner runs without per-application refinement
-    and the GHN update.  ``M``: a prebuilt f32 preconditioner on
-    ``device``.
+    converged when ``||b - K x|| <= atol + rtol ||b||``, in at most
+    ``max_outer`` passes.  Each f32 inner solve is asked for a relative
+    reduction of ``inner_rtol`` (the loose default is about the f32 floor;
+    with a factor exact at f32 a pass aims lower, at the remaining
+    reduction, capped by ``inner_rtol``); ``inner_stagwin`` bounds its
+    stagnation.  ``lean_inner`` (default) runs the inner preconditioner
+    without per-application refinement and the GHN update when the factor
+    is exact at f32; ``lean_inner=False`` keeps the caller's options (the
+    JAX package's literal per-application parity mode).  ``spmv_format``
+    and ``tile_rows`` lay out A, B and K_P as in ``driver.solve``.
+    ``M``: a prebuilt f32 preconditioner on ``device``.
     ``device_resident``: "auto" (the device loop on a CUDA device), True
     (the device loop or ValueError) or False (the host loop).
 
     All blocks must be explicit host matrices (scipy or numpy).
     """
     opts = opts or SolverOptions()
+    check_spmv_format(spmv_format)
     device = resolve_device(device)
     t_all = time.perf_counter()
     with torch.profiler.record_function(MIXED_SPAN):
@@ -142,29 +154,29 @@ def solve_mixed(method, b, A, B, C, G, *,
         t0 = time.perf_counter()
         M32 = M if M is not None else make_preconditioner(
             G, B, C, options=precond_opts, backend=backend,
-            ordering=ordering, panel=panel, dtype=torch.float32,
-            device=device)
+            ordering=ordering, panel=panel, spmv_format=spmv_format,
+            tile_rows=tile_rows, dtype=torch.float32, device=device)
         ptime = time.perf_counter() - t0
-        M32 = _lean_inner_options(M32)
+        M32 = _lean_inner_options(M32, lean_inner)
+        loop = dict(inner_rtol=inner_rtol, inner_stagwin=inner_stagwin,
+                    max_outer=max_outer, spmv_format=spmv_format,
+                    tile_rows=tile_rows, device=device, ptime=ptime,
+                    t_all=t_all)
 
         if device_resident is True or (device_resident == "auto"
                                        and device.type == "cuda"):
             devout = _try_solve_mixed_device(
                 method, b, A_h, B_h, C_h, M32, opts,
-                inner_stagwin=inner_stagwin, max_outer=max_outer,
-                device=device, ptime=ptime, t_all=t_all,
-                forced=device_resident is True)
+                forced=device_resident is True, **loop)
             if devout is not None:
                 return devout
         return _solve_mixed_host(method, b, A, B, C, G, A_h, B_h, C_h, M32,
-                                 opts, inner_stagwin=inner_stagwin,
-                                 max_outer=max_outer, device=device,
-                                 ptime=ptime, t_all=t_all)
+                                 opts, **loop)
 
 
 def _solve_mixed_host(method, b, A, B, C, G, A_h, B_h, C_h, M32, opts, *,
-                      inner_stagwin, max_outer, device, ptime,
-                      t_all) -> MixedSolveOutput:
+                      inner_rtol, inner_stagwin, max_outer, spmv_format,
+                      tile_rows, device, ptime, t_all) -> MixedSolveOutput:
     """The host outer loop (mixed.py:173-253 of the JAX package)."""
     n = A_h.shape[0]
 
@@ -176,7 +188,7 @@ def _solve_mixed_host(method, b, A, B, C, G, A_h, B_h, C_h, M32, opts, *,
     # STATUS_STAGNATED exit still returns the best iterate, which is the
     # correction the outer loop wants.  ``reorth`` (read by cpgmres only)
     # pays exactly at the f32 floor, as in the JAX package.
-    inner_opts = dataclasses.replace(opts, atol=0.0, rtol=INNER_RTOL,
+    inner_opts = dataclasses.replace(opts, atol=0.0, rtol=inner_rtol,
                                      stagwin=inner_stagwin, reorth=True)
     bnorm = float(np.linalg.norm(b))
     stop = opts.atol + opts.rtol * bnorm
@@ -195,13 +207,15 @@ def _solve_mixed_host(method, b, A, B, C, G, A_h, B_h, C_h, M32, opts, *,
             break
         # Adaptive per-pass target, for a factor exact at f32 only: aim at
         # the remaining reduction (0.3 safety for the recurrence-vs-true
-        # residual gap), floored at 1e-7 and rounded down to a power of ten.
+        # residual gap), capped by inner_rtol, floored at 1e-7 and rounded
+        # down to a power of ten.
         if M32.factor_exact and stop > 0:
-            t_pass = min(INNER_RTOL, max(0.3 * stop / rnorm, 1e-7))
+            t_pass = min(inner_rtol, max(0.3 * stop / rnorm, 1e-7))
             t_pass = 10.0 ** np.floor(np.log10(max(t_pass, 1e-7)))
             inner_opts = dataclasses.replace(inner_opts, rtol=float(t_pass))
         out = solve(method, (r / rnorm).astype(np.float32), A, B, C, G,
                     opts=inner_opts, M=M32, dtype=torch.float32,
+                    spmv_format=spmv_format, tile_rows=tile_rows,
                     device=device, refine=False)
         inner_outputs.append(out)
         inner_iters.append(out.niters)
@@ -313,13 +327,19 @@ class DeviceMixedSolver:
 
 
 def prepare_mixed_device(method, b, A, B, C, M32, opts, *,
+                         inner_rtol: float = INNER_RTOL,
                          inner_stagwin: int = 30, max_outer: int = 40,
+                         spmv_format: str = "auto", tile_rows: int = 2048,
                          device=None) -> DeviceMixedSolver | None:
     """Pack the operands of the device-resident loop on ``device`` (default
     the CUDA card); None
     when a block cannot take df64 DIA form (non-diagonal C, or a block that
-    fails the DIA gate).  The f32 inner solves read A and B through the hi
-    parts of their df64 packs, so each block is packed once."""
+    fails the DIA gate).  Under ``spmv_format`` "auto" and "dia" the f32
+    inner solves read A and B through the hi parts of their df64 packs, so
+    each block is packed once; under "csr" and "pgell" they read f32 CSR
+    copies (kernel B5).  ``inner_rtol`` caps each pass's target, as in
+    ``solve_mixed``; ``tile_rows`` has no effect off a TPU."""
+    check_spmv_format(spmv_format)
     device = resolve_device(device)
     A_h = _as_host_matrix(A, "A")
     B_h = _as_host_matrix(B, "B")
@@ -327,9 +347,13 @@ def prepare_mixed_device(method, b, A, B, C, M32, opts, *,
     Kdf = df64.pack_df_saddle(A_h, B_h, C_h, device=device)
     if Kdf is None:
         return None
-    A_op = aslinearoperator(Kdf.a.hi_dia())
+    if spmv_format in ("csr", "pgell"):
+        A_op = _device_operand(A_h, torch.float32, device, spmv_format)
+        B_op = _device_operand(B_h, torch.float32, device, spmv_format)
+    else:
+        A_op = aslinearoperator(Kdf.a.hi_dia())
+        B_op = aslinearoperator(Kdf.b.hi_dia())
     C_op = aslinearoperator(C_h, dtype=torch.float32, device=device)
-    B_op = aslinearoperator(Kdf.b.hi_dia())
 
     n, m = A_h.shape[0], C_h.shape[0]
     b = np.asarray(b, dtype=np.float64).reshape(-1)
@@ -340,7 +364,6 @@ def prepare_mixed_device(method, b, A, B, C, M32, opts, *,
     # recurrence-vs-true residual gap, floored at 1e-7) when the factor is
     # exact at f32; later passes keep the same relative target and the
     # stagnation window bounds unreachable ones.
-    inner_rtol = INNER_RTOL
     if M32.factor_exact and float(stop) > 0.0 and bnorm > 0.0:
         inner_rtol = min(inner_rtol, max(0.3 * float(stop) / bnorm, 1e-7))
     inner_opts = dataclasses.replace(opts, atol=0.0, rtol=float(inner_rtol),
@@ -355,11 +378,13 @@ def prepare_mixed_device(method, b, A, B, C, M32, opts, *,
 
 
 def _try_solve_mixed_device(method, b, A, B, C, M32, opts, *,
-                            inner_stagwin, max_outer, device, ptime, t_all,
+                            inner_rtol, inner_stagwin, max_outer,
+                            spmv_format, tile_rows, device, ptime, t_all,
                             forced):
     solver = prepare_mixed_device(
-        method, b, A, B, C, M32, opts, inner_stagwin=inner_stagwin,
-        max_outer=max_outer, device=device)
+        method, b, A, B, C, M32, opts, inner_rtol=inner_rtol,
+        inner_stagwin=inner_stagwin, max_outer=max_outer,
+        spmv_format=spmv_format, tile_rows=tile_rows, device=device)
     if solver is None:
         if forced:
             raise ValueError(

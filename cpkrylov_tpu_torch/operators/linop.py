@@ -16,7 +16,7 @@ import torch
 
 from ..ops import spmv
 from ..ops.dia import DIA
-from ..ops.formats import CSR, Diagonal, csr_from_scipy
+from ..ops.formats import BSR, CSR, ELL, Diagonal, csr_from_scipy
 from ..utils.device import resolve_device, torch_dtype
 
 
@@ -24,7 +24,7 @@ from ..utils.device import resolve_device, torch_dtype
 class MatrixOperator:
     """Wraps an explicit (sparse or dense) matrix as an operator."""
 
-    mat: object  # DIA | CSR | Diagonal | torch.Tensor
+    mat: object  # DIA | CSR | ELL | BSR | Diagonal | torch.Tensor
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -72,13 +72,15 @@ def aslinearoperator(obj, shape=None, dtype=None, device=None):
     one elementwise multiply) and ``CSR`` otherwise (kernel B5), a numpy
     array a dense tensor, on ``device`` (default the CUDA card; "cpu" on
     request) in ``dtype`` (default: the matrix's own dtype).  A tensor
-    moves to ``device`` when one is given and otherwise stays where it is.
+    moves to ``device`` when one is given and otherwise stays where it is;
+    a container of ``ops/`` (DIA, CSR, ELL, BSR, Diagonal) is wrapped as it
+    is.
     """
     import scipy.sparse as sp
 
     if isinstance(obj, LinearOperator):
         return obj
-    if isinstance(obj, (DIA, CSR, Diagonal)):
+    if isinstance(obj, (DIA, CSR, ELL, BSR, Diagonal)):
         return MatrixOperator(obj)
     if callable(obj) and not hasattr(obj, "shape"):
         if shape is None:

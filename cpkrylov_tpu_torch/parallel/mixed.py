@@ -9,7 +9,9 @@ the distributed Schur preconditioner), and every rank accumulates the f64
 solution and computes the f64 TRUE residual on the host from the gathered
 correction, so all ranks take the same decisions.  The f32 preconditioner
 and the partition plan are built once per call and reused by its passes;
-nothing is cached across calls.
+nothing is cached across calls, and a caller that solves several
+right-hand sides with one matrix (an interior-point code's predictor and
+corrector) builds the preconditioner once and passes it as ``M``.
 """
 from __future__ import annotations
 
@@ -23,9 +25,6 @@ from ..config import PrecondOptions, SolverOptions
 from ..mixed import (INNER_RTOL, MixedSolveOutput, _as_host_matrix,
                      _lean_inner_options)
 from ..utils.device import torch_dtype
-
-# Outer refinement passes before the solve gives up (the serial default).
-MAX_OUTER = 40
 
 
 def build_dist_precond(G, B, C, comm, *,
@@ -52,14 +51,24 @@ def build_dist_precond(G, B, C, comm, *,
 def dist_solve_mixed(comm, method, b, A, B, C, G, *,
                      opts: SolverOptions | None = None,
                      precond_opts: PrecondOptions | None = None,
+                     inner_rtol: float = INNER_RTOL,
                      inner_stagwin: int = 30,
-                     panel: int = 256) -> MixedSolveOutput:
+                     max_outer: int = 40,
+                     lean_inner: bool = True,
+                     panel: int = 256, halo: bool = True,
+                     M=None) -> MixedSolveOutput:
     """Sharded solve of [A B'; B -C][x1; x2] = b to f64 accuracy with f32
     work on ``comm``'s ranks (every rank calls it with the same system).
 
     Outer contract: ``||b - K x||_2 <= atol + rtol * ||b||_2`` with the f64
     TRUE residual (stronger than the kernels' preconditioned recurrence
-    criterion, cpminres.m:234-236); at most ``MAX_OUTER`` passes."""
+    criterion, cpminres.m:234-236); at most ``max_outer`` passes.
+    ``inner_rtol``, ``inner_stagwin`` and ``lean_inner`` act as in
+    ``mixed.solve_mixed``; ``halo`` as in ``plan_dist``.  ``M``: an f32
+    preconditioner built before (``build_dist_precond(..., dtype=
+    torch.float32)``, the same on every rank); the call then builds none,
+    no host factorization and no packing, and ``ptime`` covers the
+    partition plan alone."""
     from .solve import dist_solve, plan_dist
 
     opts = opts or SolverOptions()
@@ -77,15 +86,17 @@ def dist_solve_mixed(comm, method, b, A, B, C, G, *,
         return np.concatenate([A_h @ x1 + B_h.T @ x2, B_h @ x1 - C_h @ x2])
 
     t0 = time.perf_counter()
-    M32 = _lean_inner_options(build_dist_precond(
+    M32 = M if M is not None else build_dist_precond(
         G, B, C, comm, precond_opts=precond_opts, panel=panel,
-        dtype=torch.float32))
-    plan = plan_dist(A, B, C, comm, dtype=torch.float32,
+        dtype=torch.float32)
+    if hasattr(M32, "factor_nitref"):
+        M32 = _lean_inner_options(M32, lean_inner)
+    plan = plan_dist(A, B, C, comm, dtype=torch.float32, halo=halo,
                      G=G if getattr(M32.factor, "has_shard_plan", False)
                      else None)
     ptime = time.perf_counter() - t0
 
-    inner_opts = dataclasses.replace(opts, atol=0.0, rtol=INNER_RTOL,
+    inner_opts = dataclasses.replace(opts, atol=0.0, rtol=inner_rtol,
                                      stagwin=inner_stagwin, reorth=True)
     bnorm = float(np.linalg.norm(b))
     stop = opts.atol + opts.rtol * bnorm
@@ -98,13 +109,14 @@ def dist_solve_mixed(comm, method, b, A, B, C, G, *,
     solved = rnorm <= stop
     stagnant = 0
     stagwin_cur = inner_stagwin
-    for _ in range(MAX_OUTER):
+    for _ in range(max_outer):
         if solved:
             break
-        # Adaptive per-pass target for a factor exact at f32, rounded down
-        # to a power of ten, as in mixed.solve_mixed.
-        if M32.factor_exact and stop > 0:
-            t_pass = min(INNER_RTOL, max(0.3 * stop / rnorm, 1e-7))
+        # Adaptive per-pass target for a factor exact at f32, capped by
+        # inner_rtol and rounded down to a power of ten, as in
+        # mixed.solve_mixed.
+        if getattr(M32, "factor_exact", False) and stop > 0:
+            t_pass = min(inner_rtol, max(0.3 * stop / rnorm, 1e-7))
             t_pass = 10.0 ** np.floor(np.log10(max(t_pass, 1e-7)))
             inner_opts = dataclasses.replace(inner_opts, rtol=float(t_pass))
         res, x1c, x2c = dist_solve(

@@ -241,10 +241,12 @@ class DistPlan:
         return tuple(self.matvec(k, comm) for k in ("g", "bt", "b", "c"))
 
 
-def plan_dist(A, B, C, comm, dtype=torch.float64, G=None) -> DistPlan:
+def plan_dist(A, B, C, comm, dtype=torch.float64, halo: bool = True,
+              G=None) -> DistPlan:
     """Partition this rank's rows of A, B, B', C (and G when given) and
     plan a halo exchange for each block banded enough for one (a reach of
-    at most half a slice), an all-gather for the others."""
+    at most half a slice), an all-gather for the others; ``halo=False``
+    plans an all-gather for every block."""
     dtype = torch_dtype(dtype)
     n, m = A.shape[0], C.shape[0]
     n_loc, m_loc = loc_size(n, comm.size), loc_size(m, comm.size)
@@ -256,7 +258,7 @@ def plan_dist(A, B, C, comm, dtype=torch.float64, G=None) -> DistPlan:
         spec["g"] = (G, n_loc, n_loc, n)
     blocks = {}
     for name, (mat, rows_loc, cols_loc, in_size) in spec.items():
-        hb = _try_halo(mat, comm, rows_loc, cols_loc, dtype)
+        hb = _try_halo(mat, comm, rows_loc, cols_loc, dtype) if halo else None
         blocks[name] = hb if hb is not None else GatherBlock(
             mat=pack_block(row_slice(mat, comm.rank, rows_loc), dtype,
                            comm.device), in_size=int(in_size))
@@ -274,14 +276,15 @@ def dist_solve(comm, method, b, A, B, C, G, *,
                opts: SolverOptions | None = None,
                precond_opts: PrecondOptions | None = None,
                M: CPPrecond | None = None, plan: DistPlan | None = None,
-               panel: int = 256, dtype=None):
+               panel: int = 256, halo: bool = True, dtype=None):
     """Distributed ``solve`` on ``comm``'s ranks: any kernel, row-sharded
     matrices AND vectors.  Every rank calls it with the same host system.
 
     Builds the preconditioner unless ``M`` is given (the Schur factor where
     the system allows it, else the replicated one: ``mixed.
     build_dist_precond``), partitions the blocks unless ``plan`` is given,
-    and runs shift -> kernel -> un-shift on the slices.  Returns
+    and runs shift -> kernel -> un-shift on the slices; ``halo`` is
+    ``plan_dist``'s (a given ``plan`` keeps its own).  Returns
     ``(res, x1, x2)`` like the serial driver's core: the kernel's
     ``KrylovResult`` with its x and y gathered, and the solution's global
     parts, on every rank."""
@@ -308,7 +311,7 @@ def dist_solve(comm, method, b, A, B, C, G, *,
     # whole preconditioner on the slices
     shard_g = getattr(M.factor, "has_shard_plan", False)
     if plan is None:
-        plan = plan_dist(A, B, C, comm, dtype=dtype,
+        plan = plan_dist(A, B, C, comm, dtype=dtype, halo=halo,
                          G=G if shard_g else None)
     n_loc, m_loc = plan.n_loc, plan.m_loc
     amv, bmv = plan.matvec("a", comm), plan.matvec("b", comm)

@@ -41,7 +41,7 @@ import torch
 
 from ..config import PrecondOptions
 from ..ops import spmv
-from ..ops.dia import pack_sym_dia
+from ..ops.dia import MAX_FILL_RATIO, pack_sym_dia
 from ..ops.formats import csr_from_scipy
 from ..utils.device import numpy_dtype, resolve_device, torch_dtype
 from . import ldl_host
@@ -312,11 +312,36 @@ def build_factor_apply(fac, N: int, panel: int, dtype, device,
                        pout=plan_permute(fac.col_scatter, device))
 
 
-def pack_device_format(mat, dtype, device):
-    """K_P on the device: natural-order DIA when it passes the fill gate,
-    else CSR for kernel B5 (K_P is symmetric and only multiplied from the
-    left, so without the transpose)."""
-    packed = pack_sym_dia(mat, dtype=dtype, device=device)
+SPMV_FORMATS = ("auto", "dia", "csr", "pgell")
+
+
+def check_spmv_format(spmv_format: str) -> str:
+    """``spmv_format`` if the port knows it, else ValueError (the JAX
+    package's message)."""
+    if spmv_format not in SPMV_FORMATS:
+        raise ValueError(f"unknown spmv_format {spmv_format!r}")
+    return spmv_format
+
+
+def pack_device_format(mat, dtype, device, spmv_format: str = "auto",
+                       tile_rows: int = 2048):
+    """K_P on the device, by ``spmv_format``:
+
+    * "auto": natural-order DIA when it passes the fill gate, else CSR;
+    * "dia": natural-order DIA without the fill gate (the JAX package lifts
+      its gate for "dia" too), CSR only where no DIA can be formed;
+    * "csr" and "pgell": CSR, kernel B5 (the port of the PGELL kernel).
+
+    CSR is packed without the transpose: K_P is symmetric and only
+    multiplied from the left.  ``tile_rows`` sets the height of PGELL
+    pages, which exist only on a TPU: it is accepted and has no effect, as
+    on every other backend of the JAX package."""
+    check_spmv_format(spmv_format)
+    packed = None
+    if spmv_format in ("auto", "dia"):
+        packed = pack_sym_dia(
+            mat, dtype=dtype, device=device,
+            max_fill_ratio=0.0 if spmv_format == "dia" else MAX_FILL_RATIO)
     if packed is None:
         packed = csr_from_scipy(mat, dtype=dtype, device=device,
                                 transpose=False)
@@ -348,7 +373,8 @@ def choose_ordering(ksp, n: int, m: int):
 
 def build_precond(fac, ksp, n: int, m: int, *, options: PrecondOptions,
                   panel: int, dtype, device, base_order=None,
-                  factor_nitref: int | None = None) -> CPPrecond:
+                  factor_nitref: int | None = None,
+                  spmv_format: str = "auto") -> CPPrecond:
     """Device preconditioner from a host factorization of ``ksp``, with the
     build probe that sets ``factor_nitref`` and, at f32, swaps in the
     df64-applied factor (cp.py:595-685 of the JAX package)."""
@@ -412,7 +438,8 @@ def build_precond(fac, ksp, n: int, m: int, *, options: PrecondOptions,
                     "budget automatically) and the f64 path is the fast "
                     "route for this system", RuntimeWarning, stacklevel=3)
     return CPPrecond(factor=factor,
-                     kp=pack_device_format(ksp, dtype, device),
+                     kp=pack_device_format(ksp, dtype, device,
+                                           spmv_format),
                      n=int(n), m=int(m), options=options,
                      factor_nitref=int(factor_nitref),
                      nperturbed=nperturbed, factor_exact=bool(factor_exact),
@@ -451,6 +478,7 @@ def make_preconditioner(G, B, C, *, options: PrecondOptions | None = None,
                         backend: str = "auto", ordering="auto",
                         panel: int = 256, reg_value: float = 1e-10,
                         factor_nitref: int | None = None,
+                        spmv_format: str = "auto", tile_rows: int = 2048,
                         dtype=torch.float64, device=None) -> CPPrecond:
     """Build the constraint preconditioner (the driver's
     ``M = opLDL2(G, B, -C)``, reg_cpkrylov.m:131) on ``device`` (default
@@ -458,8 +486,13 @@ def make_preconditioner(G, B, C, *, options: PrecondOptions | None = None,
 
     ``ordering``: "auto" (interleave when K_P stays banded under it, else
     RCM), "rcm", "natural", or an explicit permutation array.
+    ``spmv_format`` sets the layout of K_P for the GHN and refinement
+    products ("auto", "dia", "csr" or "pgell"; ``pack_device_format``);
+    it does not change the ordering.  ``tile_rows`` has no effect off a
+    TPU (see ``pack_device_format``).
     """
     options = options or PrecondOptions()
+    check_spmv_format(spmv_format)
     dtype = torch_dtype(dtype)
     device = resolve_device(device)
     hf = factorize_kp(G, B, C, backend=backend, ordering=ordering,
@@ -467,4 +500,5 @@ def make_preconditioner(G, B, C, *, options: PrecondOptions | None = None,
     return build_precond(hf.fac, hf.ksp, hf.n, hf.m, options=options,
                          panel=panel, dtype=dtype, device=device,
                          base_order=hf.base_order,
-                         factor_nitref=factor_nitref)
+                         factor_nitref=factor_nitref,
+                         spmv_format=spmv_format)

@@ -2,8 +2,9 @@
 
 These take plain numpy/scipy fields, never JAX objects' methods, so the port
 stays free of JAX: a caller that holds the JAX package's ``HostLDL``, a
-packed DIA, a reduced-scan triangle or a CSR passes it (or its numpy
-arrays) here and gets the port's equivalent, with identical numbers, on
+packed DIA, a reduced-scan triangle, a CSR, an ELL or a BSR passes it (or
+its numpy arrays) here and gets the port's equivalent, with identical
+numbers, on
 ``device`` (default the CUDA card; "cpu" on request).
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from ..config import PrecondOptions
 from ..ops.df64 import DFDia, DFSaddle, df_dia
 from ..ops.dia import DIA
-from ..ops.formats import CSR, csr_from_scipy
+from ..ops.formats import BSR, CSR, ELL, bsr_parts, csr_from_scipy
 from ..precond import ldl_host
 from ..precond.cp import CPPrecond, build_factor_apply, build_precond
 from ..precond.df_factor import DFFactorApply, build_df_factor_apply
@@ -138,6 +139,31 @@ def csr_from_numpy(data, indices, indptr, shape, dtype=torch.float64,
                         shape=(int(shape[0]), int(shape[1])))
     return csr_from_scipy(mat, dtype=torch_dtype(dtype),
                           device=resolve_device(device), transpose=transpose)
+
+
+def ell_from_jax(e, dtype=None, device=None) -> ELL:
+    """The port's ``ELL`` from the numpy-convertible fields of the JAX
+    package's ``ELL`` (``data``, ``cols`` and ``shape``), the same slots in
+    the same places; ``dtype`` defaults to the data's own."""
+    data = np.asarray(e.data)
+    return ELL(data=torch.tensor(data).to(
+        device=resolve_device(device),
+        dtype=torch_dtype(dtype if dtype is not None else data.dtype)),
+        cols=torch.tensor(np.asarray(e.cols, np.int64),
+                          device=resolve_device(device)),
+        shape=(int(e.shape[0]), int(e.shape[1])))
+
+
+def bsr_from_jax(b, dtype=None, device=None) -> BSR:
+    """The port's ``BSR`` from the numpy-convertible fields of the JAX
+    package's ``BSR`` (``data``, ``block_cols``, ``block_rows``, ``shape``,
+    ``blocksize``), the same blocks in the same order; ``dtype`` defaults
+    to the data's own."""
+    data = np.asarray(b.data)
+    return bsr_parts(data, np.asarray(b.block_cols),
+                     np.asarray(b.block_rows), b.shape, int(b.blocksize),
+                     torch_dtype(dtype if dtype is not None else data.dtype),
+                     resolve_device(device))
 
 
 def schur_from_jax(f, rank: int):

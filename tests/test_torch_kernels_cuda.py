@@ -1020,3 +1020,70 @@ def test_dist_dryrun_on_two_gloo_ranks_sharing_the_card(cuda):
                            "dist_solve_cpgmres", "dist_solve_schur_sharded"}
     for dist_k, serial_k in counts.values():
         assert abs(dist_k - serial_k) <= 1
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's other operand containers and spmv_format="csr" on the
+# main system
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ell_and_bsr_products_repeat_their_bits(cuda, dtype):
+    """ELL and BSR products are plain PyTorch (the JAX package computes
+    them in XLA): on the card each sums a row in stored order by one
+    multiply-add a slot, no atomics, so a second call gives the same bits,
+    and so does B5 on the matrix's CSR; they agree with scipy's f64
+    product."""
+    from cpkrylov_tpu_torch.ops import cuda_spmv, spmv
+    from cpkrylov_tpu_torch.ops.formats import (bsr_from_scipy,
+                                                csr_from_scipy,
+                                                ell_from_scipy)
+
+    rng = np.random.default_rng(17)
+    A = sp.random(10_000, 9_000, density=0.002, random_state=rng,
+                  format="lil")
+    A[7, :2000] = rng.standard_normal(2000)      # one long row
+    A[8, :] = 0                                  # an empty row
+    A = A.tocsr()
+    # a sum of k products: within ~k eps (the CSR test's long-row rule)
+    tol = 5000 * torch.finfo(dtype).eps
+    for mat in (ell_from_scipy(A, dtype, cuda, lane_pad=8),
+                bsr_from_scipy(A, 8, dtype, cuda)):
+        x = torch.as_tensor(rng.standard_normal(mat.shape[1])).to(
+            device=cuda, dtype=dtype)
+        X = torch.as_tensor(rng.standard_normal((mat.shape[1], 3))).to(
+            device=cuda, dtype=dtype)
+        y, Y = spmv.matvec(mat, x), spmv.matmat(mat, X)
+        assert torch.equal(spmv.matvec(mat, x), y)
+        assert torch.equal(spmv.matmat(mat, X), Y)
+        c = csr_from_scipy(A, dtype, cuda, transpose=False)
+        assert torch.equal(y[:A.shape[0]],
+                           cuda_spmv.csr_spmv(c, x[:A.shape[1]].contiguous()))
+        xr = x.double().cpu().numpy()[:A.shape[1]]
+        Xr = X.double().cpu().numpy()[:A.shape[1]]
+        assert _rel2(y[:A.shape[0]], A @ xr) <= tol
+        assert _rel2(Y[:A.shape[0]], A @ Xr) <= tol
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_csr_kernel_equals_plain_on_the_main_system(cuda, dtype):
+    """Under ``spmv_format="csr"`` the main system's A (1M rows, ~7M
+    entries) and K_P (1.25M rows) go through B5: bit for bit its plain
+    version, and a second call."""
+    from cpkrylov_tpu_torch.ops import cuda_spmv
+    from cpkrylov_tpu_torch.ops.formats import csr_from_scipy
+    from cpkrylov_tpu_torch.precond.cp import assemble_kp
+    from cpkrylov_tpu_torch.utils import fixtures
+
+    s = fixtures.banded_saddle_system(1_000_000, 250_000, bandwidth=3,
+                                      with_oracle=False)
+    rng = np.random.default_rng(19)
+    for mat in (s.A, assemble_kp(s.G, s.B, s.C)):
+        c = csr_from_scipy(mat, dtype, cuda, transpose=False)
+        x = torch.as_tensor(rng.standard_normal(mat.shape[1])).to(
+            device=cuda, dtype=dtype)
+        y = cuda_spmv.csr_spmv(c, x)
+        assert torch.equal(y, cuda_spmv.csr_matvec_plain(c, x))
+        assert torch.equal(cuda_spmv.csr_spmv(c, x), y)
+        del c, x, y
+        torch.cuda.empty_cache()

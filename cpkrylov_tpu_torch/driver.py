@@ -30,8 +30,8 @@ from .precond.cp import (CPPrecond, check_spmv_format,
                         make_preconditioner)
 from .solvers import SOLVERS
 from .solvers.common import KrylovResult
-from .utils.device import resolve_device, torch_dtype
-from .utils.profiling import SOLVE_SPAN
+from .utils.device import resolve_device, torch_dtype, upload
+from .utils.profiling import OPERANDS_SPAN, SOLVE_SPAN, span
 from .utils.timing import sync
 
 
@@ -157,7 +157,7 @@ def solve(method, b, A, B, C, G, *,
                            spmv_format=spmv_format, tile_rows=tile_rows,
                            device=device)
         last = mout.inner_outputs[-1] if mout.inner_outputs else None
-        x = torch.as_tensor(mout.x).to(device)
+        x = upload(mout.x, device)
         if debug:
             from .utils.debug import check_finite
             check_finite(x, "solution")
@@ -180,15 +180,16 @@ def solve(method, b, A, B, C, G, *,
                                 dtype=dtype, device=device)
     ptime = time.perf_counter() - t0
 
-    A_op = _device_operand(A, dtype, device, spmv_format)
-    C_op = aslinearoperator(C, dtype=dtype, device=device)
-    B_op = _device_operand(B, dtype, device, spmv_format)
-    shift = bool(np.any(b[n:]))                     # reg_cpkrylov.m:154
-    b_dev = torch.as_tensor(b).to(device=device, dtype=dtype)
-    sync(device)
+    with span(OPERANDS_SPAN):
+        A_op = _device_operand(A, dtype, device, spmv_format)
+        C_op = aslinearoperator(C, dtype=dtype, device=device)
+        B_op = _device_operand(B, dtype, device, spmv_format)
+        shift = bool(np.any(b[n:]))                 # reg_cpkrylov.m:154
+        b_dev = upload(b, device, dtype)
+        sync(device)
 
     t1 = time.perf_counter()
-    with torch.profiler.record_function(SOLVE_SPAN):
+    with span(SOLVE_SPAN):
         res, x1, x2 = _solve_core(method, b_dev, A_op, C_op, B_op, M, opts,
                                   shift)
         sync(device)

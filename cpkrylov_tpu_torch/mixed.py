@@ -47,14 +47,22 @@ from .driver import _device_operand, _solve_core, solve
 from .operators.linop import aslinearoperator
 from .ops import df64
 from .precond.cp import check_spmv_format, make_preconditioner
-from .utils.device import resolve_device
-from .utils.profiling import MIXED_LOOP_SPAN, MIXED_SPAN
+from .utils.device import host_read, resolve_device, upload
+from .utils.profiling import (MIXED_HOST_LOOP_SPAN, MIXED_LOOP_SPAN,
+                              MIXED_PACK_SPAN, MIXED_READBACK_SPAN,
+                              MIXED_SPAN, span)
 from .utils.timing import sync
 
 _TINY32 = float(np.finfo(np.float32).tiny)
 # The default relative reduction asked of each f32 inner solve: about the
 # f32 stagnation floor (the JAX package's default).
 INNER_RTOL = 1.0e-4
+
+# Path counters (``utils/profiling.py::path_counts``): unforced device loops
+# that reached ``dispatch()``, and those of them that returned no answer and
+# sent the solve to the host loop.
+DEVICE_LOOPS = 0
+FALLBACKS = 0
 
 
 def _as_host_matrix(X, name: str):
@@ -142,7 +150,7 @@ def solve_mixed(method, b, A, B, C, G, *,
     check_spmv_format(spmv_format)
     device = resolve_device(device)
     t_all = time.perf_counter()
-    with torch.profiler.record_function(MIXED_SPAN):
+    with span(MIXED_SPAN):
         A_h = _as_host_matrix(A, "A")
         B_h = _as_host_matrix(B, "B")
         C_h = _as_host_matrix(C, "C")
@@ -170,8 +178,9 @@ def solve_mixed(method, b, A, B, C, G, *,
                 forced=device_resident is True, **loop)
             if devout is not None:
                 return devout
-        return _solve_mixed_host(method, b, A, B, C, G, A_h, B_h, C_h, M32,
-                                 opts, **loop)
+        with span(MIXED_HOST_LOOP_SPAN):
+            return _solve_mixed_host(method, b, A, B, C, G, A_h, B_h, C_h,
+                                     M32, opts, **loop)
 
 
 def _solve_mixed_host(method, b, A, B, C, G, A_h, B_h, C_h, M32, opts, *,
@@ -272,8 +281,8 @@ def _mixed_device_core(method, b_hi, b_lo, Kdf, A_op, C_op, B_op, M, opts,
     xl = torch.zeros_like(b_hi)
     rh = b_hi
     rnorm = torch.clamp(bnorm, min=_TINY32)
-    bn, solved = torch.stack([bnorm, (bnorm <= stop).to(bnorm.dtype)]
-                             ).tolist()
+    bn, solved = host_read(torch.stack([bnorm,
+                                        (bnorm <= stop).to(bnorm.dtype)]))
     hist[0] = bn
     solved = bool(solved)
     stag = 0
@@ -285,9 +294,9 @@ def _mixed_device_core(method, b_hi, b_lo, Kdf, A_op, C_op, B_op, M, opts,
         kx = Kdf.matvec((xh, xl))
         rh, _ = df64.df_add((b_hi, b_lo), df64.df_neg(kx))
         new_norm = _norm32(rh)
-        nn, ok, grew = torch.stack([
+        nn, ok, grew = host_read(torch.stack([
             new_norm, (new_norm <= stop).to(new_norm.dtype),
-            (new_norm > 0.5 * rnorm).to(new_norm.dtype)]).tolist()
+            (new_norm > 0.5 * rnorm).to(new_norm.dtype)]))
         hist[k + 1] = nn
         iters[k] = res.niters
         solved = bool(ok)
@@ -319,7 +328,7 @@ class DeviceMixedSolver:
     m: int
 
     def dispatch(self):
-        with torch.profiler.record_function(MIXED_LOOP_SPAN):
+        with span(MIXED_LOOP_SPAN):
             return _mixed_device_core(self.method, self.b_hi, self.b_lo,
                                       self.Kdf, self.A_op, self.C_op,
                                       self.B_op, self.M, self.inner_opts,
@@ -341,39 +350,42 @@ def prepare_mixed_device(method, b, A, B, C, M32, opts, *,
     ``solve_mixed``; ``tile_rows`` has no effect off a TPU."""
     check_spmv_format(spmv_format)
     device = resolve_device(device)
-    A_h = _as_host_matrix(A, "A")
-    B_h = _as_host_matrix(B, "B")
-    C_h = _as_host_matrix(C, "C")
-    Kdf = df64.pack_df_saddle(A_h, B_h, C_h, device=device)
-    if Kdf is None:
-        return None
-    if spmv_format in ("csr", "pgell"):
-        A_op = _device_operand(A_h, torch.float32, device, spmv_format)
-        B_op = _device_operand(B_h, torch.float32, device, spmv_format)
-    else:
-        A_op = aslinearoperator(Kdf.a.hi_dia())
-        B_op = aslinearoperator(Kdf.b.hi_dia())
-    C_op = aslinearoperator(C_h, dtype=torch.float32, device=device)
+    with span(MIXED_PACK_SPAN):
+        A_h = _as_host_matrix(A, "A")
+        B_h = _as_host_matrix(B, "B")
+        C_h = _as_host_matrix(C, "C")
+        Kdf = df64.pack_df_saddle(A_h, B_h, C_h, device=device)
+        if Kdf is None:
+            return None
+        if spmv_format in ("csr", "pgell"):
+            A_op = _device_operand(A_h, torch.float32, device, spmv_format)
+            B_op = _device_operand(B_h, torch.float32, device, spmv_format)
+        else:
+            A_op = aslinearoperator(Kdf.a.hi_dia())
+            B_op = aslinearoperator(Kdf.b.hi_dia())
+        C_op = aslinearoperator(C_h, dtype=torch.float32, device=device)
 
-    n, m = A_h.shape[0], C_h.shape[0]
-    b = np.asarray(b, dtype=np.float64).reshape(-1)
-    bh, bl = df64.df_from_f64(b)
-    bnorm = float(np.linalg.norm(b))
-    stop = np.float32(opts.atol + opts.rtol * bnorm)
-    # Aim pass 1 directly at the final target (0.3 safety for the
-    # recurrence-vs-true residual gap, floored at 1e-7) when the factor is
-    # exact at f32; later passes keep the same relative target and the
-    # stagnation window bounds unreachable ones.
-    if M32.factor_exact and float(stop) > 0.0 and bnorm > 0.0:
-        inner_rtol = min(inner_rtol, max(0.3 * float(stop) / bnorm, 1e-7))
-    inner_opts = dataclasses.replace(opts, atol=0.0, rtol=float(inner_rtol),
-                                     stagwin=inner_stagwin, reorth=True)
-    solver = DeviceMixedSolver(
-        method=method, b_hi=torch.as_tensor(bh).to(device),
-        b_lo=torch.as_tensor(bl).to(device), Kdf=Kdf, A_op=A_op, C_op=C_op,
-        B_op=B_op, M=M32, inner_opts=inner_opts, stop=float(stop),
-        max_outer=int(max_outer), n=int(n), m=int(m))
-    sync(device)
+        n, m = A_h.shape[0], C_h.shape[0]
+        b = np.asarray(b, dtype=np.float64).reshape(-1)
+        bh, bl = df64.df_from_f64(b)
+        bnorm = float(np.linalg.norm(b))
+        stop = np.float32(opts.atol + opts.rtol * bnorm)
+        # Aim pass 1 directly at the final target (0.3 safety for the
+        # recurrence-vs-true residual gap, floored at 1e-7) when the factor
+        # is exact at f32; later passes keep the same relative target and
+        # the stagnation window bounds unreachable ones.
+        if M32.factor_exact and float(stop) > 0.0 and bnorm > 0.0:
+            inner_rtol = min(inner_rtol,
+                             max(0.3 * float(stop) / bnorm, 1e-7))
+        inner_opts = dataclasses.replace(
+            opts, atol=0.0, rtol=float(inner_rtol), stagwin=inner_stagwin,
+            reorth=True)
+        solver = DeviceMixedSolver(
+            method=method, b_hi=upload(bh, device),
+            b_lo=upload(bl, device), Kdf=Kdf, A_op=A_op, C_op=C_op,
+            B_op=B_op, M=M32, inner_opts=inner_opts, stop=float(stop),
+            max_outer=int(max_outer), n=int(n), m=int(m))
+        sync(device)
     return solver
 
 
@@ -381,6 +393,7 @@ def _try_solve_mixed_device(method, b, A, B, C, M32, opts, *,
                             inner_rtol, inner_stagwin, max_outer,
                             spmv_format, tile_rows, device, ptime, t_all,
                             forced):
+    global DEVICE_LOOPS, FALLBACKS
     solver = prepare_mixed_device(
         method, b, A, B, C, M32, opts, inner_rtol=inner_rtol,
         inner_stagwin=inner_stagwin, max_outer=max_outer,
@@ -391,12 +404,16 @@ def _try_solve_mixed_device(method, b, A, B, C, M32, opts, *,
                 "device_resident=True requires blocks that pack into df64 "
                 "DIA form (diagonal C, banded A and B)")
         return None
+    if not forced:
+        DEVICE_LOOPS += 1
     xh, xl, hist, iters, nouter, solved = solver.dispatch()
-    x = df64.df_to_f64(xh, xl)
+    with span(MIXED_READBACK_SPAN):
+        x = df64.df_to_f64(xh, xl)
     stime = time.perf_counter() - t_all
     if not solved and not forced:
         # The device loop has a fixed inner stagnation window; a coarsely
         # factorable K_P needs the escalating host loop.
+        FALLBACKS += 1
         return None
     n = solver.n
     inner_iters = tuple(int(v) for v in iters[:nouter])

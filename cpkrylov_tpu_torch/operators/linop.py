@@ -17,7 +17,7 @@ import torch
 from ..ops import spmv
 from ..ops.dia import DIA
 from ..ops.formats import BSR, CSR, ELL, Diagonal, csr_from_scipy
-from ..utils.device import resolve_device, torch_dtype
+from ..utils.device import resolve_device, torch_dtype, upload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,9 +91,9 @@ def aslinearoperator(obj, shape=None, dtype=None, device=None):
     if isinstance(obj, torch.Tensor):
         if obj.dim() != 2:
             raise ValueError(f"expected 2-D operand, got {tuple(obj.shape)}")
-        return MatrixOperator(obj.to(
-            device=obj.device if device is None else resolve_device(device),
-            dtype=dtype or obj.dtype))
+        return MatrixOperator(upload(
+            obj, obj.device if device is None else resolve_device(device),
+            dtype or obj.dtype))
     device = resolve_device(device)
     tdtype = torch_dtype(dtype if dtype is not None else obj.dtype)
     if sp.issparse(obj):
@@ -104,11 +104,10 @@ def aslinearoperator(obj, shape=None, dtype=None, device=None):
                 # duplicate (i, i) entries sum, as in CSR
                 np.add.at(d, coo.row, coo.data)
                 return MatrixOperator(Diagonal(
-                    diag=torch.as_tensor(d).to(device=device, dtype=tdtype)))
+                    diag=upload(d, device, tdtype)))
         return MatrixOperator(csr_from_scipy(obj, dtype=tdtype,
                                              device=device))
     arr = np.asarray(obj)
     if arr.ndim != 2:
         raise ValueError(f"expected 2-D operand, got shape {arr.shape}")
-    return MatrixOperator(torch.as_tensor(arr).to(device=device,
-                                                  dtype=tdtype))
+    return MatrixOperator(upload(arr, device, tdtype))

@@ -29,7 +29,7 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, upload
 from .dia import DIA
 
 _SPLITTER = 4097.0   # 2^12 + 1 for binary32 (Dekker split)
@@ -152,14 +152,10 @@ def df_dia(hi, lo, offsets, shape, device=None) -> DFDia:
     nrows) hi/lo arrays."""
     device = resolve_device(device)
     offsets = tuple(int(o) for o in offsets)
-
-    def dev(a):
-        return torch.as_tensor(np.require(a, np.float32, ["C", "W"])).to(
-            device)
-
-    return DFDia(hi=dev(hi), lo=dev(lo), offsets=offsets,
-                 offsets_t=torch.tensor(offsets, dtype=torch.int64,
-                                        device=device),
+    return DFDia(hi=upload(np.require(hi, np.float32, ["C", "W"]), device),
+                 lo=upload(np.require(lo, np.float32, ["C", "W"]), device),
+                 offsets=offsets,
+                 offsets_t=upload(offsets, device, torch.int64),
                  shape=(int(shape[0]), int(shape[1])))
 
 
@@ -262,6 +258,5 @@ def pack_df_saddle(A, B, C, device=None) -> DFSaddle | None:
         return None
     ch, cl = df_from_f64(C.diagonal())
     return DFSaddle(a=a, bt=bt, b=b,
-                    c_diag=(torch.as_tensor(ch).to(device),
-                            torch.as_tensor(cl).to(device)),
+                    c_diag=(upload(ch, device), upload(cl, device)),
                     n=int(A.shape[0]), m=int(C.shape[0]))

@@ -23,6 +23,8 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import upload
+
 MAX_FILL_RATIO = 4.5
 
 
@@ -70,10 +72,9 @@ def pack_dia(mat, dtype: torch.dtype, device,
         k = np.searchsorted(uniq, off)
         data[k, coo.row] = coo.data
     offsets = tuple(int(o) for o in (uniq if uniq.size else [0]))
-    return DIA(data=torch.as_tensor(data).to(device=device, dtype=dtype),
+    return DIA(data=upload(data, device, dtype),
                offsets=offsets,
-               offsets_t=torch.tensor(offsets, dtype=torch.int64,
-                                      device=device),
+               offsets_t=upload(offsets, device, torch.int64),
                shape=(int(nrows), int(ncols)), nnz=int(csr.nnz))
 
 

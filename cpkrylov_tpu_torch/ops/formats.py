@@ -20,7 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device, torch_dtype
+from ..utils.device import resolve_device, torch_dtype, upload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,15 +147,11 @@ def _csr_parts(sm, dtype: torch.dtype, device):
         raise ValueError(f"CSR of shape {sm.shape} with {sm.nnz} entries "
                          "exceeds int32 column indices")
     return dict(
-        data=torch.as_tensor(np.asarray(sm.data, np.float64)).to(
-            device=device, dtype=dtype),
-        indices=torch.as_tensor(np.asarray(sm.indices, np.int32),
-                                device=device),
-        indptr=torch.as_tensor(np.asarray(sm.indptr, np.int64),
-                               device=device),
+        data=upload(np.asarray(sm.data, np.float64), device, dtype),
+        indices=upload(np.asarray(sm.indices, np.int32), device),
+        indptr=upload(np.asarray(sm.indptr, np.int64), device),
         shape=(int(nrows), int(ncols)),
-        tiles=torch.as_tensor(csr_tiles(sm.indptr, csr_tile(sm.nnz)),
-                              device=device),
+        tiles=upload(csr_tiles(sm.indptr, csr_tile(sm.nnz)), device),
         tile=csr_tile(sm.nnz))
 
 
@@ -242,8 +238,8 @@ def ell_from_scipy(mat, dtype=None, device=None,
         offs = np.arange(sm.nnz) - np.repeat(sm.indptr[:-1], counts)
         data[rows, offs] = sm.data
         cols[rows, offs] = sm.indices
-    return ELL(data=torch.as_tensor(data).to(device=device, dtype=dtype),
-               cols=torch.as_tensor(cols, device=device),
+    return ELL(data=upload(data, device, dtype),
+               cols=upload(cols, device),
                shape=(int(nrows), int(ncols)))
 
 
@@ -270,14 +266,11 @@ def bsr_parts(data, block_cols, block_rows, shape, blocksize: int,
         raise ValueError("BSR blocks must be sorted by block row")
     bs = int(blocksize)
     return BSR(
-        data=torch.tensor(np.asarray(data, np.float64)).to(
-            device=device, dtype=dtype),
-        block_cols=torch.as_tensor(np.asarray(block_cols, np.int64),
-                                   device=device),
-        block_rows=torch.as_tensor(block_rows, device=device),
+        data=upload(np.array(data, np.float64), device, dtype),
+        block_cols=upload(np.asarray(block_cols, np.int64), device),
+        block_rows=upload(block_rows, device),
         shape=(int(shape[0]), int(shape[1])), blocksize=bs,
-        slots=torch.as_tensor(bsr_slots(block_rows, int(shape[0]) // bs),
-                              device=device))
+        slots=upload(bsr_slots(block_rows, int(shape[0]) // bs), device))
 
 
 def bsr_from_scipy(mat, blocksize: int = 8, dtype=None,

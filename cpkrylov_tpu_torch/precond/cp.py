@@ -43,7 +43,11 @@ from ..config import PrecondOptions
 from ..ops import spmv
 from ..ops.dia import MAX_FILL_RATIO, pack_sym_dia
 from ..ops.formats import csr_from_scipy
-from ..utils.device import numpy_dtype, resolve_device, torch_dtype
+from ..utils.device import (host_read, numpy_dtype, resolve_device,
+                            torch_dtype, upload)
+from ..utils.profiling import (APPLY_SPAN, BUILD_LDL_SPAN, BUILD_ORDER_SPAN,
+                               BUILD_PACK_SPAN, BUILD_PROBE_SPAN, BUILD_SPAN,
+                               span)
 from . import ldl_host
 from .cuda_bidiag import build_bidiag_tri, build_bidiag_tri_upper
 from .df_factor import build_df_factor_apply
@@ -142,39 +146,40 @@ class CPPrecond:
         (1) optional GHN input correction, (2) direct solve, (3) GHN cache
         refresh from the unrefined solution, (4) optional refinement.
         Returns ``(new_state, y, rnorm)``."""
-        opts = self.options
-        n = self.n
-        if opts.residual_update:
-            zz = z - torch.cat([state.aty, state.cy])
-        else:
-            zz = z
-        y = self._direct_solve(zz)
+        with span(APPLY_SPAN):
+            opts = self.options
+            n = self.n
+            if opts.residual_update:
+                zz = z - torch.cat([state.aty, state.cy])
+            else:
+                zz = z
+            y = self._direct_solve(zz)
 
-        if opts.residual_update:
-            gv = spmv.matvec(self.kp,
-                             torch.cat([torch.zeros_like(y[:n]), y[n:]]))
-            state = CPState(aty=gv[:n], cy=gv[n:])
+            if opts.residual_update:
+                gv = spmv.matvec(self.kp,
+                                 torch.cat([torch.zeros_like(y[:n]), y[n:]]))
+                state = CPState(aty=gv[:n], cy=gv[n:])
 
-        rnorm = torch.zeros((), dtype=z.dtype, device=z.device)
-        if opts.nitref > 0:
-            r = z - spmv.matvec(self.kp, y)
-            rnorm = torch.linalg.vector_norm(r)
-            if opts.force_itref:
-                # the trigger is always true (opLDL2.m:176): exactly nitref
-                for _ in range(opts.nitref):
+            rnorm = torch.zeros((), dtype=z.dtype, device=z.device)
+            if opts.nitref > 0:
+                r = z - spmv.matvec(self.kp, y)
+                rnorm = torch.linalg.vector_norm(r)
+                if opts.force_itref:
+                    # the trigger is always true (opLDL2.m:176): exactly nitref
+                    for _ in range(opts.nitref):
+                        y = y + self._direct_solve(r)
+                        r = z - spmv.matvec(self.kp, y)
+                        rnorm = torch.linalg.vector_norm(r)
+                    return state, y, rnorm
+                xnorm = torch.linalg.vector_norm(z)
+                nit = 0
+                while (nit < opts.nitref
+                       and host_read(rnorm >= opts.itref_tol * xnorm)):
                     y = y + self._direct_solve(r)
                     r = z - spmv.matvec(self.kp, y)
                     rnorm = torch.linalg.vector_norm(r)
-                return state, y, rnorm
-            xnorm = torch.linalg.vector_norm(z)
-            nit = 0
-            while (nit < opts.nitref
-                   and bool(rnorm >= opts.itref_tol * xnorm)):
-                y = y + self._direct_solve(r)
-                r = z - spmv.matvec(self.kp, y)
-                rnorm = torch.linalg.vector_norm(r)
-                nit += 1
-        return state, y, rnorm
+                    nit += 1
+            return state, y, rnorm
 
     def apply_nm(self, state: CPState, zn: torch.Tensor, zm: torch.Tensor):
         """Apply on an (n, m) pair; returns (state, yn, ym, rnorm)."""
@@ -277,9 +282,6 @@ def build_factor_apply(fac, N: int, panel: int, dtype, device,
     ``base_order`` is the interleave the ordering was seeded with, applied
     by reshapes when the final ordering equals it.  ``fold_dinv=False``
     keeps D^-1 out of tf2 (the df64 factor models tf2 as plain U)."""
-    def dev(a):
-        return torch.as_tensor(a).to(device=device, dtype=dtype)
-
     if isinstance(fac, ldl_host.HostLDL):
         L1 = (fac.L + sp.identity(N, format="csc")).tocsr()
         tf1 = _build_tri(L1, panel, dtype, device)
@@ -301,14 +303,17 @@ def build_factor_apply(fac, N: int, panel: int, dtype, device,
         if tf2 is None:
             tf2 = _build_tri_upper(U, panel, dtype, device)
         p = plan_permute(fac.perm, device, base=base_order)
-        return FactorApply(pin=p, tf1=tf1, dinv=dev(main), tf2=tf2, pout=p,
-                           dinv_sub=None if sub is None else dev(sub),
+        return FactorApply(pin=p, tf1=tf1, dinv=upload(main, device, dtype),
+                           tf2=tf2, pout=p,
+                           dinv_sub=(None if sub is None
+                                     else upload(sub, device, dtype)),
                            dinv_folded=folded)
     # HostLU from splu
     tf1 = _build_tri(fac.L.tocsr(), panel, dtype, device)
     tf2 = _build_tri_upper(fac.U.tocsr(), panel, dtype, device)
     return FactorApply(pin=plan_permute(fac.row_perm, device),
-                       tf1=tf1, dinv=dev(np.ones(N)), tf2=tf2,
+                       tf1=tf1, dinv=upload(np.ones(N), device, dtype),
+                       tf2=tf2,
                        pout=plan_permute(fac.col_scatter, device))
 
 
@@ -378,8 +383,9 @@ def build_precond(fac, ksp, n: int, m: int, *, options: PrecondOptions,
     """Device preconditioner from a host factorization of ``ksp``, with the
     build probe that sets ``factor_nitref`` and, at f32, swaps in the
     df64-applied factor (cp.py:595-685 of the JAX package)."""
-    factor = build_factor_apply(fac, n + m, panel, dtype, device,
-                                base_order=base_order)
+    with span(BUILD_PACK_SPAN):
+        factor = build_factor_apply(fac, n + m, panel, dtype, device,
+                                    base_order=base_order)
     nperturbed = int(getattr(fac, "nperturbed", 0))
     if nperturbed:
         warnings.warn(
@@ -395,52 +401,53 @@ def build_precond(fac, ksp, n: int, m: int, *, options: PrecondOptions,
         elif nperturbed:
             factor_nitref = 1
         else:
-            # One host solve at the device precision measures the factor's
-            # residual relative to the right-hand side.
-            npd = numpy_dtype(dtype)
-            rng = np.random.default_rng(0)
-            z = rng.standard_normal(n + m)
-            yh = ldl_host.solve_host(fac, z, dtype=npd)
-            rel = (np.linalg.norm(ksp @ np.asarray(yh, np.float64) - z)
-                   / max(np.linalg.norm(z), 1e-300))
-            thresh = (1e-12 if npd == np.float64
-                      else 40 * np.finfo(npd).eps)
-            factor_exact = rel <= thresh
-            factor_nitref = 0 if factor_exact else 1
-            probe_rel = float(rel)
-            want_df = options.apply_df64
-            if npd == np.float32 and (want_df is True or (
-                    want_df == "auto" and rel > 1e-2)):
-                # The stored f32 factor is unusable as it is (or df64 was
-                # asked for): apply its entries in df64 instead, re-probed
-                # on the device.  The df64 form models tf2 as plain U, so a
-                # folded factor is rebuilt unfolded first.
-                base = factor
-                if factor.dinv_folded:
-                    base = build_factor_apply(fac, n + m, panel, dtype,
-                                              device, base_order=base_order,
-                                              fold_dinv=False)
-                factor = build_df_factor_apply(base, fac, n + m, nref=1)
-                factor_nitref = 0
+            with span(BUILD_PROBE_SPAN):
+                # One host solve at the device precision measures the factor's
+                # residual relative to the right-hand side.
+                npd = numpy_dtype(dtype)
+                rng = np.random.default_rng(0)
                 z = rng.standard_normal(n + m)
-                yd = factor.solve(torch.as_tensor(z, dtype=dtype,
-                                                  device=device))
-                rel = (np.linalg.norm(
-                    ksp @ yd.cpu().numpy().astype(np.float64) - z)
-                    / max(np.linalg.norm(z), 1e-300))
+                yh = ldl_host.solve_host(fac, z, dtype=npd)
+                rel = (np.linalg.norm(ksp @ np.asarray(yh, np.float64) - z)
+                       / max(np.linalg.norm(z), 1e-300))
+                thresh = (1e-12 if npd == np.float64
+                          else 40 * np.finfo(npd).eps)
+                factor_exact = rel <= thresh
+                factor_nitref = 0 if factor_exact else 1
                 probe_rel = float(rel)
-            if rel > 1e-2:
-                warnings.warn(
-                    f"constraint preconditioner: K_P is only coarsely "
-                    f"factorable at {npd.name} (probe solve relative "
-                    f"residual {rel:.1e}); f32 solves will need many "
-                    "iterations (mixed refinement escalates its inner "
-                    "budget automatically) and the f64 path is the fast "
-                    "route for this system", RuntimeWarning, stacklevel=3)
-    return CPPrecond(factor=factor,
-                     kp=pack_device_format(ksp, dtype, device,
-                                           spmv_format),
-                     n=int(n), m=int(m), options=options,
+                want_df = options.apply_df64
+                if npd == np.float32 and (want_df is True or (
+                        want_df == "auto" and rel > 1e-2)):
+                    # The stored f32 factor is unusable as it is (or df64 was
+                    # asked for): apply its entries in df64 instead, re-probed
+                    # on the device.  The df64 form models tf2 as plain U, so a
+                    # folded factor is rebuilt unfolded first.
+                    with span(BUILD_PACK_SPAN):
+                        base = factor
+                        if factor.dinv_folded:
+                            base = build_factor_apply(
+                                fac, n + m, panel, dtype, device,
+                                base_order=base_order, fold_dinv=False)
+                        factor = build_df_factor_apply(base, fac, n + m,
+                                                       nref=1)
+                    factor_nitref = 0
+                    z = rng.standard_normal(n + m)
+                    yd = factor.solve(upload(z, device, dtype))
+                    rel = (np.linalg.norm(
+                        ksp @ yd.cpu().numpy().astype(np.float64) - z)
+                        / max(np.linalg.norm(z), 1e-300))
+                    probe_rel = float(rel)
+                if rel > 1e-2:
+                    warnings.warn(
+                        f"constraint preconditioner: K_P is only coarsely "
+                        f"factorable at {npd.name} (probe solve relative "
+                        f"residual {rel:.1e}); f32 solves will need many "
+                        "iterations (mixed refinement escalates its inner "
+                        "budget automatically) and the f64 path is the fast "
+                        "route for this system", RuntimeWarning, stacklevel=3)
+    with span(BUILD_PACK_SPAN):
+        kp = pack_device_format(ksp, dtype, device, spmv_format)
+    return CPPrecond(factor=factor, kp=kp, n=int(n), m=int(m), options=options,
                      factor_nitref=int(factor_nitref),
                      nperturbed=nperturbed, factor_exact=bool(factor_exact),
                      probe_rel=float(probe_rel))
@@ -463,13 +470,15 @@ def factorize_kp(G, B, C, *, backend: str = "auto", ordering="auto",
     the host (``ordering`` as in ``make_preconditioner``)."""
     n = G.shape[0]
     m = C.shape[0]
-    ksp = assemble_kp(G, B, C)
-    base_order = None
-    if isinstance(ordering, str) and ordering == "auto":
-        ordering, base_order = choose_ordering(ksp, n, m)
+    with span(BUILD_ORDER_SPAN):
+        ksp = assemble_kp(G, B, C)
+        base_order = None
+        if isinstance(ordering, str) and ordering == "auto":
+            ordering, base_order = choose_ordering(ksp, n, m)
     signs = np.concatenate([np.ones(n), -np.ones(m)])
-    fac = ldl_host.factorize(ksp, method=backend, ordering=ordering,
-                             pivot_signs=signs, reg_value=reg_value)
+    with span(BUILD_LDL_SPAN):
+        fac = ldl_host.factorize(ksp, method=backend, ordering=ordering,
+                                 pivot_signs=signs, reg_value=reg_value)
     return HostFactor(fac=fac, ksp=ksp, n=int(n), m=int(m),
                       base_order=base_order)
 
@@ -491,14 +500,15 @@ def make_preconditioner(G, B, C, *, options: PrecondOptions | None = None,
     it does not change the ordering.  ``tile_rows`` has no effect off a
     TPU (see ``pack_device_format``).
     """
-    options = options or PrecondOptions()
-    check_spmv_format(spmv_format)
-    dtype = torch_dtype(dtype)
-    device = resolve_device(device)
-    hf = factorize_kp(G, B, C, backend=backend, ordering=ordering,
-                      reg_value=reg_value)
-    return build_precond(hf.fac, hf.ksp, hf.n, hf.m, options=options,
-                         panel=panel, dtype=dtype, device=device,
-                         base_order=hf.base_order,
-                         factor_nitref=factor_nitref,
-                         spmv_format=spmv_format)
+    with span(BUILD_SPAN):
+        options = options or PrecondOptions()
+        check_spmv_format(spmv_format)
+        dtype = torch_dtype(dtype)
+        device = resolve_device(device)
+        hf = factorize_kp(G, B, C, backend=backend, ordering=ordering,
+                          reg_value=reg_value)
+        return build_precond(hf.fac, hf.ksp, hf.n, hf.m, options=options,
+                             panel=panel, dtype=dtype, device=device,
+                             base_order=hf.base_order,
+                             factor_nitref=factor_nitref,
+                             spmv_format=spmv_format)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.device import upload
 
 LAUNCHES = 0
 
@@ -105,8 +106,7 @@ def build_bidiag_tri(T, dtype: torch.dtype, device) -> BidiagTriFactor | None:
     a = np.zeros(n)
     a[1:] = -lo[1:] / d[1:]
     return BidiagTriFactor(
-        a=torch.as_tensor(a).to(device=device, dtype=dtype),
-        invd=torch.as_tensor(1.0 / d).to(device=device, dtype=dtype),
+        a=upload(a, device, dtype), invd=upload(1.0 / d, device, dtype),
         n=int(n), reverse=False)
 
 
@@ -122,8 +122,7 @@ def build_bidiag_tri_upper(U, dtype: torch.dtype,
     a = np.zeros(n)
     a[: n - 1] = -up[: n - 1] / d[: n - 1]
     return BidiagTriFactor(
-        a=torch.as_tensor(a).to(device=device, dtype=dtype),
-        invd=torch.as_tensor(1.0 / d).to(device=device, dtype=dtype),
+        a=upload(a, device, dtype), invd=upload(1.0 / d, device, dtype),
         n=int(n), reverse=True)
 
 

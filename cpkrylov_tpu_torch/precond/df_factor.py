@@ -30,6 +30,7 @@ import scipy.sparse as sp
 import torch
 
 from ..ops import df64
+from ..utils.device import upload
 from .trisolve import tri_solve
 
 
@@ -77,10 +78,10 @@ def _pack_df_tri(T, device) -> DFTriMat:
         cols[rr, offs] = T.indices
     hi, lo = df64.df_from_f64(data.T)
     return DFTriMat(
-        hi=torch.as_tensor(np.ascontiguousarray(hi)).to(device),
-        lo=torch.as_tensor(np.ascontiguousarray(lo)).to(device),
-        cols=torch.as_tensor(np.ascontiguousarray(cols.T)).to(device),
-        counts=torch.as_tensor(counts.astype(np.int32)).to(device),
+        hi=upload(np.ascontiguousarray(hi), device),
+        lo=upload(np.ascontiguousarray(lo), device),
+        cols=upload(np.ascontiguousarray(cols.T), device),
+        counts=upload(counts.astype(np.int32), device),
         n=int(n))
 
 
@@ -169,16 +170,13 @@ def build_df_factor_apply(factor, fac, N: int, nref: int = 2
         U = U[rev][:, rev].tocsr()
     main, sub = _block_dinv(fac.d, fac.e)          # f64
     mh, ml = df64.df_from_f64(main)
-
-    def dev(a):
-        return torch.as_tensor(a).to(device)
-
     sub_hi = sub_lo = None
     if sub is not None:
         sh, sl = df64.df_from_f64(sub)
-        sub_hi, sub_lo = dev(sh), dev(sl)
+        sub_hi, sub_lo = upload(sh, device), upload(sl, device)
     return DFFactorApply(
         pin=factor.pin, tf1=factor.tf1, tf2=factor.tf2, pout=factor.pout,
-        dinv=dev(mh), dinv_lo=dev(ml), dinv_sub=sub_hi, dinv_sub_lo=sub_lo,
+        dinv=upload(mh, device), dinv_lo=upload(ml, device),
+        dinv_sub=sub_hi, dinv_sub_lo=sub_lo,
         t1=_pack_df_tri(L1, device), t2=_pack_df_tri(U, device),
         nref=int(nref))

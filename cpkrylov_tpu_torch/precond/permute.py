@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.device import upload
 from .cuda_interleave import interleave, uninterleave
 
 
@@ -115,6 +116,5 @@ def plan_permute(perm: np.ndarray, device,
             and np.array_equal(perm, base.perm)):
         return base
     return GatherPermute(
-        idx=torch.as_tensor(perm.astype(np.int64), device=device),
-        inv_idx=torch.as_tensor(np.argsort(perm).astype(np.int64),
-                                device=device))
+        idx=upload(perm.astype(np.int64), device),
+        inv_idx=upload(np.argsort(perm).astype(np.int64), device))

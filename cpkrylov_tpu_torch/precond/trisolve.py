@@ -37,6 +37,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.device import upload
+
 
 @dataclasses.dataclass(frozen=True)
 class BlockTriFactor:
@@ -139,13 +141,11 @@ def build_block_tri(T, dtype: torch.dtype, device,
     off_data[orow[order], pos] = oval[order]
     off_cols[orow[order], pos] = ocol[order]
 
-    def dev(a):
-        return torch.as_tensor(a).to(device=device, dtype=dtype)
-
     return BlockTriFactor(
-        inv_diag=dev(inv_diag), off_data=dev(off_data),
-        off_cols=torch.as_tensor(off_cols, device=device),
-        off_counts=torch.as_tensor(counts.astype(np.int32), device=device),
+        inv_diag=upload(inv_diag, device, dtype),
+        off_data=upload(off_data, device, dtype),
+        off_cols=upload(off_cols, device),
+        off_counts=upload(counts.astype(np.int32), device),
         n=int(n), panel=int(panel))
 
 
@@ -238,8 +238,8 @@ def reduced_scan_tri(inv, w, n: int, panel: int, r: int, dtype: torch.dtype,
     if nb * panel < n:
         raise ValueError(f"{nb} panels of {panel} rows do not cover n={n}")
     return ReducedScanTriFactor(
-        inv_diag=inv.to(device=device, dtype=dtype).contiguous(),
-        w_blocks=w.to(device=device, dtype=dtype).contiguous(),
+        inv_diag=upload(inv, device, dtype).contiguous(),
+        w_blocks=upload(w, device, dtype).contiguous(),
         n=int(n), panel=int(panel), r=int(r))
 
 

@@ -16,7 +16,7 @@ import torch
 
 from ..config import SolverOptions
 from ..operators.linop import aslinearoperator
-from ..utils.device import numpy_dtype
+from ..utils.device import host_read, numpy_dtype, upload
 
 STATUS_SOLVED = 0          # residual small compared to initial residual
 STATUS_ITMAX = 1           # maximum number of iterations attained
@@ -246,9 +246,9 @@ def manifold_ok(B_op, C_op, x, y, stop_tol) -> bool:
     scale = 1.0 + vnorm(bx) + vnorm(cy)
     feps = float(torch.finfo(x.dtype).eps)
     bound = torch.maximum((feps ** 0.5) * scale,
-                          torch.as_tensor(10.0 * stop_tol, dtype=x.dtype,
-                                          device=x.device))
-    return bool(viol <= bound)
+                          upload(torch.as_tensor(10.0 * stop_tol,
+                                                 dtype=x.dtype), x.device))
+    return host_read(viol <= bound)
 
 
 def apply_manifold_veto(solved: bool, istatus: int, B, C_op, x, y,
@@ -284,5 +284,5 @@ def breakdown_resid_recheck(solved: bool, istatus: int, resid_est: float,
     ``(solved, resid)``."""
     if istatus not in (STATUS_INDEFINITE, STATUS_BREAKDOWN):
         return solved, resid_est
-    resid_true = float(true_resid(b, A, C_op, M, mstate, x, y)[3])
+    resid_true = host_read(true_resid(b, A, C_op, M, mstate, x, y)[3])
     return resid_true <= stop_tol, resid_true

@@ -15,6 +15,7 @@ import torch
 
 from ..config import SolverOptions
 from ..precond.cp import CPPrecond, CPState
+from ..utils.device import host_read
 from .common import (KrylovResult, STATUS_BREAKDOWN, STATUS_ITMAX,
                      STATUS_SOLVED, STATUS_STAGNATED, apply_manifold_veto,
                      coupled_dot,
@@ -52,7 +53,7 @@ def cpcg(b: torch.Tensor, A, C, M: CPPrecond,
     # complex in MATLAB, whose comparisons then use the (zero) real part.
     resid_t = torch.sqrt(torch.clamp(resid2, min=0.0))
     stop_t = opts.atol + opts.rtol * resid_t
-    resid, stop_tol = torch.stack([resid_t, stop_t]).tolist()
+    resid, stop_tol = host_read(torch.stack([resid_t, stop_t]))
     hist = history_init(itmax, resid, dtype)
     stag_best, stag_since = stag_init(resid)
 
@@ -82,8 +83,8 @@ def cpcg(b: torch.Tensor, A, C, M: CPPrecond,
         q_n = -t + beta * q
         resid_n = torch.sqrt(torch.clamp(resid2_n, min=0.0))
 
-        resid_h, curv_h, resid2_h = torch.stack(
-            [resid_n, curv, resid2_n]).tolist()
+        resid_h, curv_h, resid2_h = host_read(torch.stack(
+            [resid_n, curv, resid2_n]))
         if curv_h <= 0:
             # Nonpositive curvature makes the step itself undefined
             # (second-order sufficiency broken): roll it back and stop.
@@ -111,7 +112,8 @@ def cpcg(b: torch.Tensor, A, C, M: CPPrecond,
     if breakdown:
         # The estimate is untrustworthy: verify against the true
         # preconditioned residual before claiming convergence.
-        resid_out = float(true_resid(b, A, C, M, mstate, x_out, a_out)[3])
+        resid_out = host_read(
+            true_resid(b, A, C, M, mstate, x_out, a_out)[3])
     solved = resid_out <= stop_tol
     if breakdown and not solved:
         istatus = STATUS_BREAKDOWN

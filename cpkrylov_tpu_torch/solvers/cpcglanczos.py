@@ -15,6 +15,7 @@ import torch
 
 from ..config import SolverOptions
 from ..precond.cp import CPPrecond, CPState
+from ..utils.device import host_read, upload
 from .common import (KrylovResult, STATUS_BACKWARD, STATUS_INDEFINITE,
                      STATUS_ITMAX, STATUS_SOLVED, STATUS_STAGNATED,
                      apply_manifold_veto, breakdown_resid_recheck,
@@ -38,7 +39,7 @@ def cpcglanczos(b: torch.Tensor, A, C, M: CPPrecond,
     mstate = mstate if mstate is not None else M.init_state(dtype)
 
     def scalar(v):
-        return torch.tensor(v, dtype=dtype, device=dev)
+        return upload(torch.tensor(v, dtype=dtype), dev)
 
     zeron = torch.zeros(n, dtype=dtype, device=dev)
     zerom = torch.zeros(m, dtype=dtype, device=dev)
@@ -49,8 +50,8 @@ def cpcglanczos(b: torch.Tensor, A, C, M: CPPrecond,
     beta1 = beta
     stop_t = opts.atol + opts.rtol * beta1             # cpcglanczos.m:195
     bstop_t = btol * beta1                             # cpcglanczos.m:198
-    resid, stop_tol, bstop_tol, indefinite = torch.stack(
-        [beta1, stop_t, bstop_t, indefinite0.to(dtype)]).tolist()
+    resid, stop_tol, bstop_tol, indefinite = host_read(torch.stack(
+        [beta1, stop_t, bstop_t, indefinite0.to(dtype)]))
     indefinite = bool(indefinite)
     hist = history_init(itmax, resid, dtype)
     stag_best, stag_since = stag_init(resid)
@@ -122,8 +123,8 @@ def cpcglanczos(b: torch.Tensor, A, C, M: CPPrecond,
             bstop_n = torch.zeros((), dtype=dtype, device=dev)
 
         resid_n = beta_n * torch.abs(zeta)             # cpcglanczos.m:293
-        resid_h, indef_h, bstop_h = torch.stack(
-            [resid_n, indef.to(dtype), bstop_n]).tolist()
+        resid_h, indef_h, bstop_h = host_read(torch.stack(
+            [resid_n, indef.to(dtype), bstop_n]))
         if indef_h:
             # Keep the last good iterate where the reference would throw
             # (cpcglanczos.m:248-254).

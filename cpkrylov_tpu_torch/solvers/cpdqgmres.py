@@ -20,6 +20,7 @@ import torch
 
 from ..config import SolverOptions
 from ..precond.cp import CPPrecond, CPState
+from ..utils.device import host_read
 from .common import (KrylovResult, STATUS_BREAKDOWN, STATUS_ITMAX,
                      STATUS_SOLVED, STATUS_STAGNATED, apply_manifold_veto,
                      coupled_dot,
@@ -50,7 +51,7 @@ def cpdqgmres(b: torch.Tensor, A, C, M: CPPrecond,
     resid0_t = torch.sqrt(torch.clamp(vdot(b, v1), min=0.0))  # l.157
     v1, q1 = safe_normalize_pair(v1, q1, resid0_t)
     stop_t = opts.atol + opts.rtol * resid0_t          # cpdqgmres.m:169
-    resid, stop_tol = torch.stack([resid0_t, stop_t]).tolist()
+    resid, stop_tol = host_read(torch.stack([resid0_t, stop_t]))
     stag_best, stag_since = stag_init(resid)
     hist = history_init(itmax, resid, dtype)
 
@@ -137,8 +138,8 @@ def cpdqgmres(b: torch.Tensor, A, C, M: CPPrecond,
         x = x + step * pv
         y = y - step * pq
 
-        resid_h, brk = torch.stack(
-            [torch.abs(g[kp1pos]), (dsub <= 0).to(dtype)]).tolist()
+        resid_h, brk = host_read(torch.stack(
+            [torch.abs(g[kp1pos]), (dsub <= 0).to(dtype)]))
         breakdown = bool(brk)
         # An unchanged estimate means |s| = 1, c = 0: the degenerate regime
         # past the method's accuracy floor, where further iterations only
@@ -158,9 +159,9 @@ def cpdqgmres(b: torch.Tensor, A, C, M: CPPrecond,
                 or stag_stop(stag_since, opts.stagwin))
     x_out, y_out, resid_trusted = x, y, resid
     if bad_exit:
-        rv_final, rv_prev = torch.stack(
+        rv_final, rv_prev = host_read(torch.stack(
             [true_resid(b, A, C, M, mstate, xv, yv)[3]
-             for xv, yv in ((x, y), (x_prev, y_prev))]).tolist()
+             for xv, yv in ((x, y), (x_prev, y_prev))]))
         if rv_prev < rv_final:
             x_out, y_out = x_prev, y_prev
         resid_trusted = min(rv_final, rv_prev)

@@ -20,6 +20,7 @@ import torch
 
 from ..config import SolverOptions
 from ..precond.cp import CPPrecond, CPState
+from ..utils.device import host_read
 from .common import (KrylovResult, STATUS_BREAKDOWN, STATUS_ITMAX,
                      STATUS_SOLVED, apply_manifold_veto, coupled_dot,
                      history_init, resolve_itmax, resolve_operators,
@@ -56,7 +57,7 @@ def cpgmres(b: torch.Tensor, A, C, M: CPPrecond,
                                       min=0.0))
     v1, q1 = safe_normalize_pair(v1, q1, resid0_t)
     stop_t = opts.atol + opts.rtol * resid0_t          # cpgmres.m:182
-    resid0, stop_tol = torch.stack([resid0_t, stop_t]).tolist()
+    resid0, stop_tol = host_read(torch.stack([resid0_t, stop_t]))
 
     hist = history_init(outermax * restart, resid0, dtype)
     hidx = 0
@@ -140,8 +141,8 @@ def cpgmres(b: torch.Tensor, A, C, M: CPPrecond,
             g[k] = ck * gk
             cols.append(torch.stack(h))
 
-            resid_h, brk = torch.stack(
-                [torch.abs(g[k + 1]), (dsub <= 0).to(dtype)]).tolist()
+            resid_h, brk = host_read(torch.stack(
+                [torch.abs(g[k + 1]), (dsub <= 0).to(dtype)]))
             breakdown = bool(brk)
             resid = resid_h
             k += 1
@@ -179,7 +180,7 @@ def cpgmres(b: torch.Tensor, A, C, M: CPPrecond,
         # substitution) is rolled back and the solver exits.
         mstate, v1, q1, seed_t = true_resid(b, A, C, M, mstate, x_n, y_n)
         v1, q1 = safe_normalize_pair(v1, q1, seed_t)
-        seed = float(seed_t)
+        seed = host_read(seed_t)
 
         improved = seed < resid_seed
         if improved:

@@ -14,6 +14,7 @@ import torch
 
 from ..config import SolverOptions
 from ..precond.cp import CPPrecond, CPState
+from ..utils.device import host_read, upload
 from .common import (KrylovResult, STATUS_INDEFINITE, STATUS_ITMAX,
                      STATUS_SOLVED, STATUS_STAGNATED, apply_manifold_veto,
                      breakdown_resid_recheck, eps100, history_init,
@@ -39,7 +40,7 @@ def cpminres(b: torch.Tensor, A, C, M: CPPrecond,
     mstate = mstate if mstate is not None else M.init_state(dtype)
 
     def scalar(v):
-        return torch.tensor(v, dtype=dtype, device=dev)
+        return upload(torch.tensor(v, dtype=dtype), dev)
 
     zeron = torch.zeros(n, dtype=dtype, device=dev)
     zerom = torch.zeros(m, dtype=dtype, device=dev)
@@ -49,8 +50,8 @@ def cpminres(b: torch.Tensor, A, C, M: CPPrecond,
         b, m, M, mstate, e100)
 
     stop_t = opts.atol + opts.rtol * beta              # cpminres.m:164
-    resid, stop_tol, indefinite = torch.stack(
-        [beta, stop_t, indefinite0.to(dtype)]).tolist()
+    resid, stop_tol, indefinite = host_read(torch.stack(
+        [beta, stop_t, indefinite0.to(dtype)]))
     indefinite = bool(indefinite)
     hist = history_init(itmax, resid, dtype)
     stag_best, stag_since = stag_init(resid)
@@ -89,7 +90,7 @@ def cpminres(b: torch.Tensor, A, C, M: CPPrecond,
         tau = cs_n * taubar
         taubar_n = sn_n * taubar
 
-        resid_n, indef_h = torch.stack([taubar_n, indef.to(dtype)]).tolist()
+        resid_n, indef_h = host_read(torch.stack([taubar_n, indef.to(dtype)]))
         if indef_h:
             # Keep the last good iterate; the status reports the guard.
             indefinite = True

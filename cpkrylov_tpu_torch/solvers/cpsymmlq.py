@@ -19,7 +19,7 @@ import torch
 
 from ..config import SolverOptions
 from ..precond.cp import CPPrecond, CPState
-from ..utils.device import numpy_dtype
+from ..utils.device import host_read, numpy_dtype
 from .common import (KrylovResult, STATUS_INDEFINITE, STATUS_ITMAX,
                      STATUS_SOLVED, STATUS_STAGNATED, apply_manifold_veto,
                      breakdown_resid_recheck, eps100, initial_lanczos_pair,
@@ -54,8 +54,8 @@ def cpsymmlq(b: torch.Tensor, A, C, M: CPPrecond,
     mstate, _, _, alpha, v2, q2, beta, indef1 = lanczos_step(
         A, C, M, mstate, v1, q1, zeron, zerom, zero, e100)
 
-    cgresid, stop_tol, indefinite = torch.stack(
-        [beta1, stop_t, (indefinite0 | indef1).to(dtype)]).tolist()
+    cgresid, stop_tol, indefinite = host_read(torch.stack(
+        [beta1, stop_t, (indefinite0 | indef1).to(dtype)]))
     indefinite = bool(indefinite)
     beta1_h = cgresid
     done0 = cgresid <= stop_tol                        # cpsymmlq.m:189
@@ -104,8 +104,8 @@ def cpsymmlq(b: torch.Tensor, A, C, M: CPPrecond,
         (mstate, _, _, alpha, vkp1_n, qkp1_n, beta_n,
          indef) = lanczos_step(A, C, M, mstate, vk_n, qk_n, vkm1, qkm1,
                                betaold, e100)
-        lq_h, qr_h, cg_h, indef_h = torch.stack(
-            [lq, qr, cg, indef.to(dtype)]).tolist()
+        lq_h, qr_h, cg_h, indef_h = host_read(torch.stack(
+            [lq, qr, cg, indef.to(dtype)]))
         if indef_h:
             # Keep the last good iterate where the reference would throw
             # (cpsymmlq.m:274-278).
@@ -159,7 +159,7 @@ def cpsymmlq(b: torch.Tensor, A, C, M: CPPrecond,
     # Wrap-up (cpsymmlq.m:317-347); skipped when the solver never iterated.
     lq_f, qr_f, _, den = norms(matnorm2, gammabar, epsdelzeta, epsilonzeta,
                                snprod, beta)
-    lq_fh, qr_fh = torch.stack([lq_f, qr_f]).tolist()
+    lq_fh, qr_fh = host_read(torch.stack([lq_f, qr_f]))
     lq_hist[k] = beta1_h if done0 else lq_fh
     qr_hist[k] = beta1_h if done0 else qr_fh
     cg_hist[0] = beta1_h

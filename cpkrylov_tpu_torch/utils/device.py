@@ -1,8 +1,12 @@
-"""Device and dtype resolution shared by the entry points."""
+"""Device and dtype resolution shared by the entry points, and the two
+ways values cross between the host and the device: :func:`upload` and
+:func:`host_read`, each inside its profiler span."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .profiling import HOST_READ_SPAN, UPLOAD_SPAN, span
 
 
 def resolve_device(device) -> torch.device:
@@ -34,3 +38,20 @@ def torch_dtype(dtype) -> torch.dtype:
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return np.dtype(np.float32 if dtype == torch.float32 else np.float64)
+
+
+def upload(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``a`` (a numpy array, a sequence or a tensor) on ``device`` as
+    ``dtype`` (default its own), inside a ``cpkrylov.upload`` span.  As
+    ``torch.as_tensor(a).to(...)``: on the host in its own dtype, the
+    result may share ``a``'s memory."""
+    with span(UPLOAD_SPAN):
+        return torch.as_tensor(a).to(device=device, dtype=dtype)
+
+
+def host_read(t: torch.Tensor):
+    """The values of device tensor ``t`` on the host (``t.tolist()``: a
+    Python scalar for a 0-d tensor), inside a ``cpkrylov.host_read`` span:
+    the span's length is how long the host waited for the device."""
+    with span(HOST_READ_SPAN):
+        return t.tolist()

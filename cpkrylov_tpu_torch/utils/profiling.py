@@ -1,12 +1,10 @@
 """Device-time profile of a solve, read from one ``torch.profiler`` trace.
 
 :func:`device_profile` runs a callable once under the profiler and reads
-the trace it wrote: the wall time of a named span (``SOLVE_SPAN``, which
-``driver.solve`` opens around the Krylov iteration and its final
-synchronize; ``MIXED_SPAN``, which ``mixed.solve_mixed`` opens around the
-whole mixed solve; ``MIXED_LOOP_SPAN`` around the device-resident outer loop
-alone, without the per-call packing), the device's busy time inside that span (the union of its
-kernel, memcpy and memset intervals), and the host's kernel launches.  Busy
+the trace it wrote: the wall time of a named span (one of the spans below,
+``SOLVE_SPAN`` by default), the device's busy time inside that span (the
+union of its kernel, memcpy and memset intervals), and the host's kernel
+launches.  Busy
 time and wall time come from the same trace, so the idle share they give is
 that of the profiled run: the profiler's own host overhead counts as idle,
 which makes it an upper bound of the unprofiled idle share.
@@ -21,8 +19,39 @@ model counts entries, not bytes: it implies no bandwidth.
 
 :func:`launch_counts` reads the ``LAUNCHES`` counters of the hand-written
 kernels B1-B10 (each wrapper adds one where it launches its kernel, and
-nowhere else), and :func:`reset_launches` sets them to 0, so a run can show
-which kernels carried it.
+nowhere else), so a run can show which kernels carried it;
+:func:`path_counts` reads the counters of the paths a solve took
+(``PATH_COUNTERS``: ``mixed_device_loops``, the unforced device loops of
+``mixed.solve_mixed`` that reached ``dispatch()``, and ``mixed_fallbacks``,
+those of them that did not converge and sent the solve to the host loop).
+:func:`reset_launches` sets both kinds of counter to 0.
+
+Spans.  Every span of the port is a ``torch.profiler.record_function``
+span opened through :func:`span`, which costs one check of the profiler's
+state when no profiler records.  The spans sit in the same trace as the
+device's records, on its clock:
+
+* ``cpkrylov.solve`` (``SOLVE_SPAN``): ``driver.solve``'s Krylov iteration
+  and its final synchronize;
+* ``cpkrylov.operands``: ``driver.solve``'s packing of A, B, C and b onto
+  the device, with the synchronize that ends it;
+* ``cpkrylov.upload``: every host-to-device copy of the request and build
+  paths (``utils.device.upload``);
+* ``cpkrylov.build``: ``make_preconditioner``; inside it
+  ``cpkrylov.build.order`` (K_P's assembly and ordering),
+  ``cpkrylov.build.ldl`` (the host factorization), ``cpkrylov.build.probe``
+  (the probe solve and the df64 re-probe) and ``cpkrylov.build.pack`` (the
+  factor's and K_P's device packs; the df64 rebuild sits inside the probe);
+* ``cpkrylov.solve_mixed`` (``MIXED_SPAN``): a whole ``mixed.solve_mixed``;
+  inside it ``cpkrylov.mixed.pack`` (``prepare_mixed_device``'s packing),
+  ``cpkrylov.mixed_loop`` (``MIXED_LOOP_SPAN``, the device loop),
+  ``cpkrylov.mixed.readback`` (the answer to the host) and
+  ``cpkrylov.mixed.host_loop`` (the host loop);
+* ``cpkrylov.apply``: one ``CPPrecond.apply``;
+* ``cpkrylov.host_read``: one device-to-host read of a value the host
+  loop needs (``utils.device.host_read``): the kernels' stopping tests,
+  the refinement trigger of ``CPPrecond.apply``, the mixed device loop's
+  scalars.
 """
 from __future__ import annotations
 
@@ -40,6 +69,18 @@ import torch
 SOLVE_SPAN = "cpkrylov.solve"   # record_function span around the iteration
 MIXED_SPAN = "cpkrylov.solve_mixed"   # ... around a whole mixed solve
 MIXED_LOOP_SPAN = "cpkrylov.mixed_loop"   # ... around its device loop
+OPERANDS_SPAN = "cpkrylov.operands"       # driver.solve: A, B, C, b on device
+UPLOAD_SPAN = "cpkrylov.upload"           # one host-to-device copy
+BUILD_SPAN = "cpkrylov.build"             # make_preconditioner
+BUILD_ORDER_SPAN = "cpkrylov.build.order"     # assemble K_P, choose ordering
+BUILD_LDL_SPAN = "cpkrylov.build.ldl"         # the host factorization
+BUILD_PROBE_SPAN = "cpkrylov.build.probe"     # the build probe solve(s)
+BUILD_PACK_SPAN = "cpkrylov.build.pack"       # factor and K_P device packs
+MIXED_PACK_SPAN = "cpkrylov.mixed.pack"       # prepare_mixed_device's packing
+MIXED_READBACK_SPAN = "cpkrylov.mixed.readback"   # device answer to host
+MIXED_HOST_LOOP_SPAN = "cpkrylov.mixed.host_loop"  # the host outer loop
+APPLY_SPAN = "cpkrylov.apply"             # CPPrecond.apply
+HOST_READ_SPAN = "cpkrylov.host_read"     # one device-to-host read
 
 # kernel name -> (wrapper module, its counter): B1-B10
 KERNEL_COUNTERS = {
@@ -54,6 +95,12 @@ KERNEL_COUNTERS = {
                      "INV_LAUNCHES"),
     "block_tri": ("cpkrylov_tpu_torch.precond.cuda_block_tri", "LAUNCHES"),
     "df_tri_matvec": ("cpkrylov_tpu_torch.precond.cuda_df_tri", "LAUNCHES"),
+}
+
+# counter name -> (module, its counter): the paths a solve took
+PATH_COUNTERS = {
+    "mixed_device_loops": ("cpkrylov_tpu_torch.mixed", "DEVICE_LOOPS"),
+    "mixed_fallbacks": ("cpkrylov_tpu_torch.mixed", "FALLBACKS"),
 }
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -76,15 +123,36 @@ class DeviceProfile:
         return 1.0 - self.busy_ms / self.wall_ms if self.wall_ms > 0 else 0.0
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` span called ``name`` while a profiler records;
+    otherwise a shared null context, so that a span costs one check of the
+    profiler's state when nobody traces."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def _read(counters: dict) -> dict:
+    return {name: getattr(importlib.import_module(mod), attr)
+            for name, (mod, attr) in counters.items()}
+
+
 def launch_counts() -> dict:
     """Each kernel's launches since its counter was last reset."""
-    return {name: getattr(importlib.import_module(mod), attr)
-            for name, (mod, attr) in KERNEL_COUNTERS.items()}
+    return _read(KERNEL_COUNTERS)
+
+
+def path_counts() -> dict:
+    """Each path counter (``PATH_COUNTERS``) since it was last reset."""
+    return _read(PATH_COUNTERS)
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch counter to 0."""
-    for mod, attr in KERNEL_COUNTERS.values():
+    """Set every kernel's launch counter and every path counter to 0."""
+    for mod, attr in (*KERNEL_COUNTERS.values(), *PATH_COUNTERS.values()):
         setattr(importlib.import_module(mod), attr, 0)
 
 

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import resolve_device, upload
-from .dia import DIA
+from .dia import DIA, CSRArrays, place_dia, upload_csr
 
 _SPLITTER = 4097.0   # 2^12 + 1 for binary32 (Dekker split)
 
@@ -159,6 +159,32 @@ def df_dia(hi, lo, offsets, shape, device=None) -> DFDia:
                  shape=(int(shape[0]), int(shape[1])))
 
 
+def _df_forms(v: torch.Tensor):
+    """The (hi, lo) f32 pair of f64 values, as :func:`df_from_f64` splits
+    them: each conversion and the subtraction rounded on its own."""
+    hi = v.to(torch.float32)
+    return hi, (v - hi.to(torch.float64)).to(torch.float32)
+
+
+def _place_df(csr: CSRArrays, max_bytes_ratio: float,
+              transpose: bool = False) -> DFDia | None:
+    """The df64 DIA of ``csr`` (of its transpose if ``transpose``) on its
+    device; None when the padded f64 diagonals (8 bytes a slot) would
+    exceed ``max_bytes_ratio`` times the CSR bytes (12 a stored entry)."""
+    placed = place_dia(csr, max_bytes_ratio * csr.nnz * 12.0 / 8, _df_forms,
+                       transpose)
+    if placed is None:
+        return None
+    offsets, offsets_t, (hi, lo) = placed
+    return DFDia(hi=hi, lo=lo, offsets=offsets, offsets_t=offsets_t,
+                 shape=csr.shape[::-1] if transpose else csr.shape)
+
+
+def _upload_f64(mat, device) -> CSRArrays:
+    csr = mat if isinstance(mat, sp.csr_matrix) else sp.csr_matrix(mat)
+    return upload_csr(csr.astype(np.float64, copy=False), device)
+
+
 def pack_df_dia(mat, device=None, max_bytes_ratio: float = 3.0
                 ) -> DFDia | None:
     """Pack a scipy matrix into df64 DIA form on ``device`` (default the
@@ -166,20 +192,8 @@ def pack_df_dia(mat, device=None, max_bytes_ratio: float = 3.0
     diagonals would exceed ``max_bytes_ratio`` times the CSR bytes (the JAX
     package's gate, df64.py:148, so the device loop engages on the same
     inputs)."""
-    csr = sp.csr_matrix(mat).astype(np.float64)
-    csr.sum_duplicates()
-    nrows, ncols = csr.shape
-    coo = csr.tocoo()
-    off = coo.col.astype(np.int64) - coo.row.astype(np.int64)
-    uniq = np.unique(off) if coo.nnz else np.array([0], np.int64)
-    if csr.nnz and uniq.size * nrows * 8 > max_bytes_ratio * csr.nnz * 12.0:
-        return None
-    data = np.zeros((uniq.size, nrows), np.float64)
-    if coo.nnz:
-        k = np.searchsorted(uniq, off)
-        data[k, coo.row] = coo.data
-    hi, lo = df_from_f64(data)
-    return df_dia(hi, lo, uniq, (nrows, ncols), device=device)
+    return _place_df(_upload_f64(mat, resolve_device(device)),
+                     max_bytes_ratio)
 
 
 def _pads(offsets, nrows, ncols):
@@ -251,10 +265,14 @@ def pack_df_saddle(A, B, C, device=None) -> DFSaddle | None:
     if offd.nnz:
         return None
     a = pack_df_dia(A, device=device)
-    B = sp.csr_matrix(B)
-    b = pack_df_dia(B, device=device)
-    bt = pack_df_dia(B.T.tocsr(), device=device)
-    if a is None or b is None or bt is None:
+    if a is None:
+        return None
+    B = _upload_f64(B, device)
+    b = _place_df(B, 3.0)
+    if b is None:
+        return None
+    bt = _place_df(B, 3.0, transpose=True)     # from B's uploaded arrays
+    if bt is None:
         return None
     ch, cl = df_from_f64(C.diagonal())
     return DFSaddle(a=a, bt=bt, b=b,

@@ -12,13 +12,20 @@ padded diagonals may hold at most ``max_fill_ratio`` slots per stored entry.
 The default 4.5 is the JAX package's f32 gate (padded bytes <= 1.5x the
 12 bytes per entry of its CSR) counted in slots, so f32 and f64 get the same
 layout on every device.
+
+Packing is done where the operand will live: the host only makes the matrix
+a canonical CSR (:func:`upload_csr`) and uploads its three arrays, and
+:func:`place_dia` finds the diagonals and places the values with tensor
+operations on their device.  It serves every DIA pack of the port: the f64
+and f32 ``DIA`` here, and the df64 pairs of ``ops/df64.py`` (also of a
+transpose, from the same uploaded arrays).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import Callable, Tuple
 
-import numpy as np
 import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
@@ -26,6 +33,11 @@ import torch.nn.functional as F
 from ..utils.device import upload
 
 MAX_FILL_RATIO = 4.5
+
+# Path counters (``utils/profiling.py::path_counts``): placements made on a
+# CUDA device, and CUDA-device attempts that the gate sent to CSR.
+CARD_PACKS = 0
+GATE_REFUSALS = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,29 +65,99 @@ class DIA:
         return len(self.offsets)
 
 
+@dataclasses.dataclass(frozen=True)
+class CSRArrays:
+    """A canonical CSR's arrays on a device: ``indptr`` and ``indices`` in
+    the host's own integer dtype, ``data`` as f64."""
+
+    indptr: torch.Tensor      # (nrows + 1,)
+    indices: torch.Tensor     # (nnz,) column indices, ascending in a row
+    data: torch.Tensor        # (nnz,) f64 values
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.data.shape[0])
+
+
+def upload_csr(mat, device) -> CSRArrays:
+    """``mat`` as a canonical CSR (rows sorted, duplicates summed by
+    scipy) with its arrays on ``device``.  A ``csr_matrix`` is taken as it
+    is when scipy's flag on it says it is canonical (the flag is checked
+    once and kept on the matrix); anything else is canonicalized on a
+    copy."""
+    csr = mat if isinstance(mat, sp.csr_matrix) else sp.csr_matrix(mat)
+    if not csr.has_canonical_format:
+        csr = csr.copy()
+        csr.sum_duplicates()
+    return CSRArrays(indptr=upload(csr.indptr, device),
+                     indices=upload(csr.indices, device),
+                     data=upload(csr.data, device, torch.float64),
+                     shape=(int(csr.shape[0]), int(csr.shape[1])))
+
+
+def place_dia(csr: CSRArrays, max_slots: float,
+              forms: Callable[[torch.Tensor], Tuple[torch.Tensor, ...]],
+              transpose: bool = False):
+    """Place the entries of ``csr`` (of its transpose if ``transpose``) by
+    diagonals, on ``csr``'s device.
+
+    Returns ``(offsets, offsets_t, stacks)``: the distinct offsets col - row
+    ascending, as a tuple and as an int64 tensor, and for each tensor of
+    ``forms(csr.data)`` a zeroed ``(ndiag, nrows)`` stack holding each
+    entry's form at ``[k, row]``.  Explicit zeros count as entries; a matrix
+    with none gets the single offset 0.  None when ``ndiag * nrows`` would
+    exceed ``max_slots``.  The offsets are the one value read back."""
+    global CARD_PACKS, GATE_REFUSALS
+    nrows, ncols = csr.shape[::-1] if transpose else csr.shape
+    dev = csr.data.device
+    if csr.nnz:
+        rows = torch.repeat_interleave(
+            torch.arange(csr.shape[0], device=dev), csr.indptr.diff(),
+            output_size=csr.nnz)
+        cols = csr.indices.long()
+        if transpose:
+            rows, cols = cols, rows
+        shifted = cols - rows + (nrows - 1)     # in [0, nrows + ncols - 1)
+        present = torch.zeros(nrows + ncols - 1, dtype=torch.bool,
+                              device=dev)
+        present[shifted] = True
+        offsets_t = torch.nonzero(present).squeeze(1) - (nrows - 1)
+        offsets = tuple(offsets_t.tolist())
+        if len(offsets) * nrows > max_slots:
+            if dev.type == "cuda":
+                GATE_REFUSALS += 1
+            return None
+        slot = torch.cumsum(present, 0) - 1
+        flat = slot[shifted] * nrows + rows
+    else:
+        offsets = (0,)
+        offsets_t = torch.zeros(1, dtype=torch.int64, device=dev)
+    stacks = []
+    for vals in forms(csr.data):
+        out = torch.zeros((len(offsets), nrows), dtype=vals.dtype,
+                          device=dev)
+        if csr.nnz:
+            out.view(-1)[flat] = vals
+        stacks.append(out)
+    if dev.type == "cuda":
+        CARD_PACKS += 1
+    return offsets, offsets_t, tuple(stacks)
+
+
 def pack_dia(mat, dtype: torch.dtype, device,
              max_fill_ratio: float = MAX_FILL_RATIO) -> DIA | None:
-    """Pack a scipy matrix by diagonals; None when the padded diagonals would
-    hold more than ``max_fill_ratio`` slots per stored entry (0 = no limit)."""
-    csr = sp.csr_matrix(mat)
-    csr.sum_duplicates()
-    nrows, ncols = csr.shape
-    coo = csr.tocoo()
-    off = coo.col.astype(np.int64) - coo.row.astype(np.int64)
-    uniq = np.unique(off)
-    ndiag = int(uniq.size) if uniq.size else 1
-    if (max_fill_ratio > 0 and csr.nnz
-            and ndiag * nrows > max_fill_ratio * csr.nnz):
+    """Pack a scipy matrix by diagonals on ``device``; None when the padded
+    diagonals would hold more than ``max_fill_ratio`` slots per stored entry
+    (0 = no limit).  f32 rounds each value to nearest."""
+    csr = upload_csr(mat, device)
+    max_slots = max_fill_ratio * csr.nnz if max_fill_ratio > 0 else math.inf
+    placed = place_dia(csr, max_slots, lambda v: (v.to(dtype),))
+    if placed is None:
         return None
-    data = np.zeros((ndiag, nrows), dtype=np.float64)
-    if csr.nnz:
-        k = np.searchsorted(uniq, off)
-        data[k, coo.row] = coo.data
-    offsets = tuple(int(o) for o in (uniq if uniq.size else [0]))
-    return DIA(data=upload(data, device, dtype),
-               offsets=offsets,
-               offsets_t=upload(offsets, device, torch.int64),
-               shape=(int(nrows), int(ncols)), nnz=int(csr.nnz))
+    offsets, offsets_t, (data,) = placed
+    return DIA(data=data, offsets=offsets, offsets_t=offsets_t,
+               shape=csr.shape, nnz=csr.nnz)
 
 
 def pack_sym_dia(mat, dtype: torch.dtype, device,

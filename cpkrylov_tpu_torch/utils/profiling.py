@@ -22,8 +22,11 @@ kernels B1-B10 (each wrapper adds one where it launches its kernel, and
 nowhere else), so a run can show which kernels carried it;
 :func:`path_counts` reads the counters of the paths a solve took
 (``PATH_COUNTERS``: ``mixed_device_loops``, the unforced device loops of
-``mixed.solve_mixed`` that reached ``dispatch()``, and ``mixed_fallbacks``,
-those of them that did not converge and sent the solve to the host loop).
+``mixed.solve_mixed`` that reached ``dispatch()``; ``mixed_fallbacks``,
+those of them that did not converge and sent the solve to the host loop;
+``dia_card_packs``, the DIA placements of ``ops/dia.py::place_dia`` made
+on a CUDA device; and ``dia_gate_refusals``, the CUDA-device attempts
+whose padded diagonals failed the caller's gate, which then keeps CSR).
 :func:`reset_launches` sets both kinds of counter to 0.
 
 Spans.  Every span of the port is a ``torch.profiler.record_function``
@@ -101,6 +104,8 @@ KERNEL_COUNTERS = {
 PATH_COUNTERS = {
     "mixed_device_loops": ("cpkrylov_tpu_torch.mixed", "DEVICE_LOOPS"),
     "mixed_fallbacks": ("cpkrylov_tpu_torch.mixed", "FALLBACKS"),
+    "dia_card_packs": ("cpkrylov_tpu_torch.ops.dia", "CARD_PACKS"),
+    "dia_gate_refusals": ("cpkrylov_tpu_torch.ops.dia", "GATE_REFUSALS"),
 }
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
+from _host_dia import (gate_cases, host_df_dia, host_df_saddle,
+                       placement_cases)
 
 import cpkrylov_tpu as cpk
 import cpkrylov_tpu_torch as cpt
@@ -187,6 +189,70 @@ def test_pack_df_dia_gate_matches_jax():
             np.testing.assert_array_equal(ours.hi.numpy(), np.asarray(ref.hi))
     assert df64.pack_df_dia(_gate_cases(np.random.default_rng(4))[
         "scattered"], device="cpu") is None
+
+
+DF_CASES = placement_cases(np.random.default_rng(12))
+DF_GATE_CASES = gate_cases()
+
+
+def _same_df(got, hi, lo, offsets, shape):
+    assert got.offsets == offsets and got.shape == shape
+    assert got.offsets_t.tolist() == list(offsets)
+    for t, want in ((got.hi, hi), (got.lo, lo)):
+        assert t.dtype == torch.float32 and t.is_contiguous()
+        np.testing.assert_array_equal(t.numpy().view(np.uint32),
+                                      np.asarray(want).view(np.uint32))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("case", sorted(DF_CASES))
+def test_df_placement_matches_host_and_jax_pack(case, transpose):
+    """hi and lo of every entry as the host split them, bit for bit; the
+    transposed placement against the host pack of ``M.T.tocsr()``."""
+    mat = DF_CASES[case].copy()
+    want = mat.T.tocsr() if transpose else mat
+    if transpose:
+        got = df64._place_df(df64._upload_f64(mat, "cpu"), 3.0,
+                             transpose=True)
+    else:
+        got = df64.pack_df_dia(mat, device="cpu")
+    _same_df(got, *host_df_dia(want))
+    jd = jdf.pack_df_dia(want)
+    _same_df(got, np.asarray(jd.hi), np.asarray(jd.lo), jd.offsets,
+             jd.shape)
+
+
+@pytest.mark.parametrize("case", sorted(DF_GATE_CASES))
+def test_df_placement_gate_at_its_boundary(case):
+    mat, passes = DF_GATE_CASES[case]
+    got = df64.pack_df_dia(mat, device="cpu")
+    ref = host_df_dia(mat)
+    assert (got is not None) == passes == (ref is not None)
+    assert (jdf.pack_df_dia(mat) is not None) == passes
+    if passes:
+        _same_df(got, *ref)
+
+
+def test_df_saddle_equals_the_host_pack():
+    """Every block of ``pack_df_saddle`` (B' placed from B's own uploaded
+    arrays) equals the host pack's, B' from a host transpose."""
+    sysm = fixtures.banded_saddle_system(2000, 500, bandwidth=3,
+                                         with_oracle=False)
+    got = df64.pack_df_saddle(sysm.A, sysm.B, sysm.C, device="cpu")
+    ref = host_df_saddle(sysm.A, sysm.B, sysm.C, "cpu")
+    for blk in ("a", "b", "bt"):
+        g, r = getattr(got, blk), getattr(ref, blk)
+        _same_df(g, r.hi.numpy(), r.lo.numpy(), r.offsets, r.shape)
+    for g, r in zip(got.c_diag, ref.c_diag):
+        assert torch.equal(g, r)
+    assert (got.n, got.m) == (ref.n, ref.m)
+    # B' past the gate where B passes: n x m with n >> m
+    wide = sp.diags([np.ones(50), np.ones(50)], [0, 1000], shape=(50, 2000),
+                    format="csr")
+    assert df64.pack_df_dia(wide, device="cpu") is not None
+    assert df64.pack_df_saddle(sp.identity(2000, format="csr"), wide,
+                               sp.identity(50), device="cpu") is None
+    assert host_df_dia(wide.T.tocsr()) is None
 
 
 def test_df_saddle_residual_cancellation():

@@ -30,7 +30,9 @@ second call; at panels of 1536 and 2048 on cvxqp1_m's factor, whose
 element growth amplifies rounding, to BLOCK_TOL (``chip_smoke.py``'s).
 The df64 triangle product (B10) rounds every step of its chain
 explicitly: hi and lo equal its plain version's exactly, also with the
-special values of x[0] that its padding slots read.
+special values of x[0] that its padding slots read.  The DIA placement on
+the card moves and rounds each value as on the CPU and as the host pack it
+replaced: exact, and the main system's solves keep their bits.
 """
 import functools
 
@@ -1087,3 +1089,130 @@ def test_csr_kernel_equals_plain_on_the_main_system(cuda, dtype):
         assert torch.equal(cuda_spmv.csr_spmv(c, x), y)
         del c, x, y
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# DIA placement on the card (ops/dia.py::place_dia)
+# ---------------------------------------------------------------------------
+
+_WORD = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def _same_bits(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    return torch.equal(a.cpu().view(_WORD[a.dtype]),
+                       b.cpu().view(_WORD[b.dtype]))
+
+
+def test_the_main_system_packs_on_card_as_on_cpu_and_host(cuda):
+    """A (1M rows, ~7M entries), B, B' and K_P of the main system, placed
+    on the card: bit for bit the placement of CPU tensors and the host
+    pack it replaced (tests/_host_dia.py), in f64, f32 and df64."""
+    from _host_dia import host_df_dia, host_dia
+
+    from cpkrylov_tpu_torch.ops import df64
+    from cpkrylov_tpu_torch.ops.dia import pack_dia
+    from cpkrylov_tpu_torch.precond.cp import assemble_kp
+    from cpkrylov_tpu_torch.utils import fixtures
+
+    s = fixtures.banded_saddle_system(1_000_000, 250_000, bandwidth=3,
+                                      with_oracle=False)
+    for mat in (s.A, s.B, assemble_kp(s.G, s.B, s.C)):
+        data, offsets, shape, nnz = host_dia(mat)
+        for dtype in DTYPES:
+            card = pack_dia(mat, dtype, cuda)
+            cpu = pack_dia(mat, dtype, "cpu")
+            assert card.offsets == cpu.offsets == offsets
+            assert card.shape == shape and card.nnz == nnz
+            assert card.offsets_t.tolist() == list(offsets)
+            assert _same_bits(card.data, cpu.data)
+            host = torch.as_tensor(data).to(dtype)
+            assert _same_bits(card.data, host)
+        del card, cpu, host
+    card = df64.pack_df_saddle(s.A, s.B, s.C, device=cuda)
+    cpu = df64.pack_df_saddle(s.A, s.B, s.C, device="cpu")
+    for blk, mat in (("a", s.A), ("b", s.B), ("bt", s.B.T.tocsr())):
+        hi, lo, offsets, shape = host_df_dia(mat)
+        c, p = getattr(card, blk), getattr(cpu, blk)
+        assert c.offsets == p.offsets == offsets and c.shape == shape
+        for part, want in ((c.hi, torch.as_tensor(hi)),
+                           (c.lo, torch.as_tensor(lo))):
+            assert _same_bits(part, want)
+        assert _same_bits(c.hi, p.hi) and _same_bits(c.lo, p.lo)
+
+
+def test_the_main_solves_are_unchanged_by_the_card_pack(cuda, monkeypatch):
+    """The benchmark's f64 and mixed solves of the main system give the
+    same x, bit for bit, and the same iterations with the operands packed
+    on the card as with the host packs they replaced."""
+    from _host_dia import host_df_saddle, host_dia
+
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch import driver
+    from cpkrylov_tpu_torch.ops import df64
+    from cpkrylov_tpu_torch.utils import fixtures
+    from cpkrylov_tpu_torch.utils.convert import dia_from_numpy
+
+    def host_pack_dia(mat, dtype, device, max_fill_ratio=4.5):
+        ref = host_dia(mat, max_fill_ratio)
+        if ref is None:
+            return None
+        data, offsets, shape, nnz = ref
+        return dia_from_numpy(data, offsets, shape, dtype=dtype,
+                              device=device, nnz=nnz)
+
+    s = fixtures.banded_saddle_system(1_000_000, 250_000, bandwidth=3,
+                                      with_oracle=False)
+    popts = cpt.PrecondOptions(nitref=1, itref_tol=1e-8, force_itref=True,
+                               residual_update=True, apply_df64="auto")
+    for dtype, refine, stagwin in ((torch.float64, False, 0),
+                                   (torch.float32, True, 25)):
+        opts = cpt.SolverOptions(atol=0.0, rtol=1e-6, itmax=200,
+                                 stagwin=stagwin)
+        M = cpt.make_preconditioner(s.G, s.B, s.C, options=popts, panel=256,
+                                    dtype=dtype, device=cuda)
+
+        def call():
+            return cpt.solve("cpminres", s.b, s.A, s.B, s.C, s.G, opts=opts,
+                             precond_opts=popts, panel=256, dtype=dtype,
+                             device=cuda, M=M, refine=refine)
+
+        new = call()
+        with monkeypatch.context() as mp:
+            mp.setattr(driver, "pack_dia", host_pack_dia)
+            mp.setattr(df64, "pack_df_saddle",
+                       lambda A, B, C, device=None:
+                       host_df_saddle(A, B, C, device))
+            old = call()
+        assert new.solved and old.solved, dtype
+        assert new.niters == old.niters, dtype
+        assert _same_bits(new.x, old.x), dtype
+        del M, new, old
+        torch.cuda.empty_cache()
+
+
+def test_card_packs_and_gate_refusals_are_counted(cuda):
+    """A banded solve packs A, B and K_P on the card; each block of
+    cvxqp1_m fails the gate on the card and keeps CSR."""
+    import cpkrylov_tpu_torch as cpt
+    from cpkrylov_tpu_torch.utils import fixtures
+    from cpkrylov_tpu_torch.utils.profiling import path_counts, reset_launches
+
+    popts = cpt.PrecondOptions(residual_update=True, nitref=1,
+                               force_itref=True)
+    s = fixtures.banded_saddle_system(20_000, 5_000)
+    reset_launches()
+    out = cpt.solve("cpminres", s.b, s.A, s.B, s.C, s.G, device=cuda,
+                    dtype=torch.float64, precond_opts=popts,
+                    opts=cpt.SolverOptions(atol=0.0, rtol=1e-6, itmax=200))
+    c = path_counts()
+    assert out.solved
+    assert (c["dia_card_packs"], c["dia_gate_refusals"]) == (3, 0)
+    f = fixtures.load_fixture("cvxqp1_m")
+    reset_launches()
+    out = cpt.solve("cpminres", f.b, f.A, f.B, f.C, f.G, device=cuda,
+                    dtype=torch.float64, precond_opts=popts,
+                    opts=cpt.SolverOptions(atol=1e-6, rtol=1e-6, itmax=500))
+    c = path_counts()
+    assert out.solved
+    assert (c["dia_card_packs"], c["dia_gate_refusals"]) == (0, 3)

@@ -16,6 +16,7 @@ import torch
 
 import cpkrylov_tpu_torch as cpt
 from cpkrylov_tpu_torch import mixed
+from cpkrylov_tpu_torch.ops import dia as tdia
 from cpkrylov_tpu_torch.utils import device as devutil
 from cpkrylov_tpu_torch.utils import profiling as prof
 from portbench import harness, spans
@@ -27,7 +28,8 @@ BENCH = harness.load_json(harness.ROOT, "BENCHMARK.json")
 NEW_METRICS = ("driver.pack_ms", "driver.upload_ms", "precond.ldl_ms",
                "precond.probe_ms", "precond.pack_ms",
                "krylov.apply_ms_per_iter", "krylov.host_reads_per_iter",
-               "krylov.read_wait_ms_per_iter", "mixed.fallback_share")
+               "krylov.read_wait_ms_per_iter", "mixed.fallback_share",
+               "driver.dia_card_pack_share")
 
 
 def _cell(name):
@@ -236,23 +238,27 @@ def _device_mixed(cell, M32, opts, forced):
         ptime=0.0, t_all=0.0, forced=forced)
 
 
+def _counts(loops, fallbacks):
+    """The path counters after CPU solves: the placements of CPU tensors
+    are no card packs and no card refusals."""
+    return {"mixed_device_loops": loops, "mixed_fallbacks": fallbacks,
+            "dia_card_packs": 0, "dia_gate_refusals": 0}
+
+
 def test_a_fallback_is_counted():
     cell = _cell("banded_1m.mixed_stream")
     M32 = _setup_M(cell, torch.float32)
     prof.reset_launches()
     never = cpt.SolverOptions(atol=0.0, rtol=1e-30, itmax=200)
     assert _device_mixed(cell, M32, never, forced=False) is None
-    assert prof.path_counts() == {"mixed_device_loops": 1,
-                                  "mixed_fallbacks": 1}
+    assert prof.path_counts() == _counts(1, 1)
     # a forced loop is no fallback, and returns its unconverged answer
     assert not _device_mixed(cell, M32, never, forced=True).solved
-    assert prof.path_counts() == {"mixed_device_loops": 1,
-                                  "mixed_fallbacks": 1}
+    assert prof.path_counts() == _counts(1, 1)
     # a converged unforced loop counts as a loop only
     loose = cpt.SolverOptions(atol=0.0, rtol=1e-3, itmax=200)
     assert _device_mixed(cell, M32, loose, forced=False).solved
-    assert prof.path_counts() == {"mixed_device_loops": 2,
-                                  "mixed_fallbacks": 1}
+    assert prof.path_counts() == _counts(2, 1)
     # the solve then takes the host loop, and solves
     prof.reset_launches()
     sysm, b = cell.system(0)
@@ -261,8 +267,7 @@ def test_a_fallback_is_counted():
                             device_resident="auto")
     assert out.nouter == 1 and prof.path_counts()["mixed_device_loops"] == 0
     prof.reset_launches()
-    assert prof.path_counts() == {"mixed_device_loops": 0,
-                                  "mixed_fallbacks": 0}
+    assert prof.path_counts() == _counts(0, 0)
 
 
 def test_the_benchmark_names_the_ports_spans():
@@ -345,6 +350,26 @@ def test_the_fallback_share_reads_the_counters(monkeypatch):
     monkeypatch.setattr(mixed, "DEVICE_LOOPS", 8)
     monkeypatch.setattr(mixed, "FALLBACKS", 2)
     assert read(run) == pytest.approx(25.0)
+    monkeypatch.delattr(prof, "path_counts")
+    assert read(run) is None
+
+
+def test_the_card_pack_share_reads_the_counters(monkeypatch):
+    _, run = _tiny_run("banded_1m.rhs_stream")
+    read = harness.metric_reader("driver.dia_card_pack_share")
+    monkeypatch.setattr(tdia, "CARD_PACKS", 0)
+    monkeypatch.setattr(tdia, "GATE_REFUSALS", 0)
+    assert read(run) is None
+    monkeypatch.setattr(tdia, "CARD_PACKS", 6)
+    monkeypatch.setattr(tdia, "GATE_REFUSALS", 2)
+    assert read(run) == pytest.approx(75.0)
+    monkeypatch.setattr(tdia, "CARD_PACKS", 0)
+    assert read(run) == 0.0
+    # a program with the mixed counters alone, or with none
+    monkeypatch.setitem(prof.__dict__, "PATH_COUNTERS", {
+        k: v for k, v in prof.PATH_COUNTERS.items()
+        if k.startswith("mixed")})
+    assert read(run) is None
     monkeypatch.delattr(prof, "path_counts")
     assert read(run) is None
 

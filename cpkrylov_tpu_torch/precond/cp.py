@@ -49,14 +49,34 @@ from ..utils.profiling import (APPLY_SPAN, BUILD_LDL_SPAN, BUILD_ORDER_SPAN,
                                BUILD_PACK_SPAN, BUILD_PROBE_SPAN, BUILD_SPAN,
                                span)
 from . import ldl_host
-from .cuda_bidiag import build_bidiag_tri, build_bidiag_tri_upper
+from .cuda_bidiag import (BidiagTriFactor, build_bidiag_tri,
+                          build_bidiag_tri_upper)
 from .df_factor import build_df_factor_apply
 from .permute import interleave_candidates, plan_permute
-from .trisolve import build_block_tri, build_reduced_scan_tri, tri_solve
+from .trisolve import (ReducedScanTriFactor, build_block_tri,
+                       build_reduced_scan_tri, tri_solve)
 
 # Largest device footprint of one triangle's dense panel inverses in the
 # reduced-scan form (cp.py:256 of the JAX package).
 MAX_SCAN_BYTES = 2 << 30
+
+# Path counters (``utils/profiling.py::path_counts``): the triangles
+# ``_build_tri`` and ``_build_tri_upper`` built, by form.
+TRI_REDUCED_SCAN_BUILDS = 0
+TRI_BLOCK_BUILDS = 0
+TRI_BIDIAG_BUILDS = 0
+
+
+def _counted(tf):
+    """Count a built triangle by its form; returns it."""
+    global TRI_REDUCED_SCAN_BUILDS, TRI_BLOCK_BUILDS, TRI_BIDIAG_BUILDS
+    if isinstance(tf, ReducedScanTriFactor):
+        TRI_REDUCED_SCAN_BUILDS += 1
+    elif isinstance(tf, BidiagTriFactor):
+        TRI_BIDIAG_BUILDS += 1
+    else:
+        TRI_BLOCK_BUILDS += 1
+    return tf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,7 +248,7 @@ def _build_tri(T, panel: int, dtype, device):
     if reach <= 1:
         tf = build_bidiag_tri(T, dtype=dtype, device=device)
         if tf is not None:
-            return tf
+            return _counted(tf)
     n = T.shape[0]
     itemsize = torch.empty((), dtype=dtype).element_size()
     p0 = max(8, -(-max(reach, 1) // 8) * 8)
@@ -241,8 +261,9 @@ def _build_tri(T, panel: int, dtype, device):
             tf = build_reduced_scan_tri(T, dtype=dtype, device=device,
                                         panel=p)
             if tf is not None:
-                return tf
-    return build_block_tri(T, dtype=dtype, device=device, panel=panel)
+                return _counted(tf)
+    return _counted(build_block_tri(T, dtype=dtype, device=device,
+                                    panel=panel))
 
 
 def _build_tri_upper(U, panel: int, dtype, device):
@@ -252,7 +273,7 @@ def _build_tri_upper(U, panel: int, dtype, device):
     if _reach(U, upper=True) <= 1:
         tf = build_bidiag_tri_upper(U, dtype=dtype, device=device)
         if tf is not None:
-            return tf
+            return _counted(tf)
     U = sp.csr_matrix(U)
     rev = np.arange(U.shape[0] - 1, -1, -1)
     return _build_tri(U[rev][:, rev].tocsr(), panel, dtype, device)

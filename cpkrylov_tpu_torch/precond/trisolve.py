@@ -33,11 +33,17 @@ An upper-triangular solve is either form on the index-reversed matrix
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from ..utils.device import upload
+from ..utils.profiling import BUILD_SCAN_PACK_SPAN, span
+
+# Path counter (``utils/profiling.py::path_counts``): host microseconds
+# spent in ``pack_reduced_scan_np``.
+SCAN_PACK_US = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,7 +193,17 @@ def pack_reduced_scan_np(T, panel: int = 128, r: int | None = None,
     """Host packing of the reduced-state scan form (trisolve.py:346-389 of
     the JAX package, the same numbers): numpy ``(inv (nb, p, p), w (nb, p,
     r), n, panel, r)``, or None when the reach exceeds ``panel``.  Linear in
-    nnz plus O(nb p^3) batched LAPACK/BLAS work."""
+    nnz plus O(nb p^3) batched LAPACK/BLAS work; inside the span
+    ``cpkrylov.build.scan_pack``, its host time added to ``SCAN_PACK_US``."""
+    global SCAN_PACK_US
+    t0 = time.perf_counter()
+    with span(BUILD_SCAN_PACK_SPAN):
+        out = _pack_reduced_scan(T, panel, r, dtype)
+    SCAN_PACK_US += int(round(1e6 * (time.perf_counter() - t0)))
+    return out
+
+
+def _pack_reduced_scan(T, panel: int, r: int | None, dtype):
     T, er, ec, ev = _coo_canonical(T)
     n = T.shape[0]
     dtype = dtype or T.dtype

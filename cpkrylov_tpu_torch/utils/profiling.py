@@ -25,9 +25,14 @@ nowhere else), so a run can show which kernels carried it;
 ``mixed.solve_mixed`` that reached ``dispatch()``; ``mixed_fallbacks``,
 those of them that did not converge and sent the solve to the host loop;
 ``dia_card_packs``, the DIA placements of ``ops/dia.py::place_dia`` made
-on a CUDA device; and ``dia_gate_refusals``, the CUDA-device attempts
-whose padded diagonals failed the caller's gate, which then keeps CSR).
-:func:`reset_launches` sets both kinds of counter to 0.
+on a CUDA device; ``dia_gate_refusals``, the CUDA-device attempts whose
+padded diagonals failed the caller's gate, which then keeps CSR;
+``tri_reduced_scan_builds``, ``tri_block_builds`` and
+``tri_bidiag_builds``, the triangles that ``precond/cp.py::_build_tri`` and
+``_build_tri_upper`` built in each form, on any device; and
+``scan_pack_us``, the host microseconds spent in
+``precond/trisolve.py::pack_reduced_scan_np``).  :func:`reset_launches`
+sets both kinds of counter to 0.
 
 Spans.  Every span of the port is a ``torch.profiler.record_function``
 span opened through :func:`span`, which costs one check of the profiler's
@@ -45,6 +50,9 @@ device's records, on its clock:
   ``cpkrylov.build.ldl`` (the host factorization), ``cpkrylov.build.probe``
   (the probe solve and the df64 re-probe) and ``cpkrylov.build.pack`` (the
   factor's and K_P's device packs; the df64 rebuild sits inside the probe);
+  inside a pack ``cpkrylov.build.scan_pack``, one host packing of a
+  reduced-scan triangle (``pack_reduced_scan_np``: the panels' trtri and
+  the batched matmul);
 * ``cpkrylov.solve_mixed`` (``MIXED_SPAN``): a whole ``mixed.solve_mixed``;
   inside it ``cpkrylov.mixed.pack`` (``prepare_mixed_device``'s packing),
   ``cpkrylov.mixed_loop`` (``MIXED_LOOP_SPAN``, the device loop),
@@ -79,6 +87,7 @@ BUILD_ORDER_SPAN = "cpkrylov.build.order"     # assemble K_P, choose ordering
 BUILD_LDL_SPAN = "cpkrylov.build.ldl"         # the host factorization
 BUILD_PROBE_SPAN = "cpkrylov.build.probe"     # the build probe solve(s)
 BUILD_PACK_SPAN = "cpkrylov.build.pack"       # factor and K_P device packs
+BUILD_SCAN_PACK_SPAN = "cpkrylov.build.scan_pack"  # a reduced-scan host pack
 MIXED_PACK_SPAN = "cpkrylov.mixed.pack"       # prepare_mixed_device's packing
 MIXED_READBACK_SPAN = "cpkrylov.mixed.readback"   # device answer to host
 MIXED_HOST_LOOP_SPAN = "cpkrylov.mixed.host_loop"  # the host outer loop
@@ -106,6 +115,12 @@ PATH_COUNTERS = {
     "mixed_fallbacks": ("cpkrylov_tpu_torch.mixed", "FALLBACKS"),
     "dia_card_packs": ("cpkrylov_tpu_torch.ops.dia", "CARD_PACKS"),
     "dia_gate_refusals": ("cpkrylov_tpu_torch.ops.dia", "GATE_REFUSALS"),
+    "tri_reduced_scan_builds": ("cpkrylov_tpu_torch.precond.cp",
+                                "TRI_REDUCED_SCAN_BUILDS"),
+    "tri_block_builds": ("cpkrylov_tpu_torch.precond.cp", "TRI_BLOCK_BUILDS"),
+    "tri_bidiag_builds": ("cpkrylov_tpu_torch.precond.cp",
+                          "TRI_BIDIAG_BUILDS"),
+    "scan_pack_us": ("cpkrylov_tpu_torch.precond.trisolve", "SCAN_PACK_US"),
 }
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

@@ -5,7 +5,9 @@ in the trace, nested where the work happens; without a profiler no span
 calls ``record_function``; the profiler changes no answer, iteration count
 or launch count; the mixed solve counts its device loops and fallbacks;
 and each per-layer metric that reads a span or counter reads a number at
-the benchmark's CPU sizes, and nothing from a program that lacks it.
+the benchmark's CPU sizes, and nothing from a program that lacks it.  A
+build counts its triangles by form and times its reduced-scan packs, each
+inside a ``cpkrylov.build.scan_pack`` span.
 """
 import json
 import os
@@ -17,9 +19,11 @@ import torch
 import cpkrylov_tpu_torch as cpt
 from cpkrylov_tpu_torch import mixed
 from cpkrylov_tpu_torch.ops import dia as tdia
+from cpkrylov_tpu_torch.precond import trisolve
+from cpkrylov_tpu_torch.precond.cp import factorize_kp
 from cpkrylov_tpu_torch.utils import device as devutil
 from cpkrylov_tpu_torch.utils import profiling as prof
-from portbench import harness, spans
+from portbench import harness, roofline, spans
 from portbench.tests._tiny import run_tiny, tiny_config
 from portbench.trace import Trace
 
@@ -29,11 +33,22 @@ NEW_METRICS = ("driver.pack_ms", "driver.upload_ms", "precond.ldl_ms",
                "precond.probe_ms", "precond.pack_ms",
                "krylov.apply_ms_per_iter", "krylov.host_reads_per_iter",
                "krylov.read_wait_ms_per_iter", "mixed.fallback_share",
-               "driver.dia_card_pack_share")
+               "driver.dia_card_pack_share", "kernel.band_tri_roofline",
+               "precond.scan_pack_s")
+# the AUG2D-L cell at grid 40: the reduced-scan factor at p 80, r 79
+AUG_GRID = 40
+
+
+def _tiny_config(name):
+    if name.startswith("aug2d_l."):
+        cfg = harness.load_json(harness.ROOT, "portbench/configs/aug2d_l.json")
+        cfg["generator"]["grid"] = AUG_GRID
+        return cfg
+    return tiny_config(name)
 
 
 def _cell(name):
-    return harness.Cell(BENCH, name, SEED, config=tiny_config(name))
+    return harness.Cell(BENCH, name, SEED, config=_tiny_config(name))
 
 
 def _opts(cell, **kw):
@@ -101,6 +116,8 @@ CASES = {
     "cvxqp_setup": ("cvxqp3_l.rhs_stream", "setup", "solve"),
     "banded_build": ("banded_1m.rhs_stream", None, "solve"),
     "banded_setup": ("banded_1m.rhs_stream", "setup", "solve"),
+    "aug_build": ("aug2d_l.rhs_stream", None, "solve"),
+    "aug_setup": ("aug2d_l.rhs_stream", "setup", "solve"),
     "mixed_host_loop": ("banded_1m.mixed_stream", "setup", False),
     "mixed_device_loop": ("banded_1m.mixed_stream", "setup", True),
 }
@@ -149,6 +166,11 @@ def test_a_traced_solve_nests_every_span(case, tmp_path):
                    prof.BUILD_PROBE_SPAN, prof.BUILD_PACK_SPAN):
             _nested(found, sp, prof.BUILD_SPAN)
         assert len(found[prof.BUILD_PACK_SPAN]) == 2   # factor, then K_P
+        if name.startswith("aug2d_l."):                # L, then reversed U
+            assert len(found[prof.BUILD_SCAN_PACK_SPAN]) == 2
+            _nested(found, prof.BUILD_SCAN_PACK_SPAN, prof.BUILD_PACK_SPAN)
+        else:
+            assert prof.BUILD_SCAN_PACK_SPAN not in found
     else:
         assert prof.BUILD_SPAN not in found
     # every upload of the call sits in a pack of the request or the build,
@@ -176,9 +198,12 @@ def test_the_df64_rebuild_packs_inside_the_probe(tmp_path):
 
 
 def _fingerprint(out):
+    """x's bits, the iterations and every count; ``scan_pack_us`` is a
+    time, so only whether it counted anything."""
     x = out.x if isinstance(out.x, np.ndarray) else out.x.numpy()
-    return (x.tobytes(), out.niters, prof.launch_counts(),
-            prof.path_counts())
+    paths = prof.path_counts()
+    paths["scan_pack_us"] = paths["scan_pack_us"] > 0
+    return (x.tobytes(), out.niters, prof.launch_counts(), paths)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -189,6 +214,7 @@ def test_the_profiler_changes_no_bit_or_count(case, tmp_path):
     prof.reset_launches()
     on = _fingerprint(_traced(fn, tmp_path)[0])
     assert on == off
+    assert on[3]["scan_pack_us"] is (case == "aug_build")
 
 
 def test_without_a_profiler_no_span_is_opened(monkeypatch):
@@ -242,7 +268,9 @@ def _counts(loops, fallbacks):
     """The path counters after CPU solves: the placements of CPU tensors
     are no card packs and no card refusals."""
     return {"mixed_device_loops": loops, "mixed_fallbacks": fallbacks,
-            "dia_card_packs": 0, "dia_gate_refusals": 0}
+            "dia_card_packs": 0, "dia_gate_refusals": 0,
+            "tri_reduced_scan_builds": 0, "tri_block_builds": 0,
+            "tri_bidiag_builds": 0, "scan_pack_us": 0}
 
 
 def test_a_fallback_is_counted():
@@ -268,6 +296,52 @@ def test_a_fallback_is_counted():
     assert out.nouter == 1 and prof.path_counts()["mixed_device_loops"] == 0
     prof.reset_launches()
     assert prof.path_counts() == _counts(0, 0)
+
+
+def test_without_a_profiler_the_scan_pack_opens_no_span(monkeypatch):
+    """(Under a profiler it opens inside the pack: the aug cases of
+    ``test_a_traced_solve_nests_every_span``.)"""
+    build = _run_case("aug_build")
+    calls = []
+
+    def record_function(name):
+        calls.append(name)
+        raise AssertionError("record_function without a profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", record_function)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        record_function)
+    prof.reset_launches()
+    assert build().solved
+    assert calls == [] and prof.path_counts()["scan_pack_us"] > 0
+
+
+BUILD_COUNTS = {
+    # case: the cell whose set-up system is built, and (reduced-scan,
+    # block, bidiagonal) triangles
+    "aug": ("aug2d_l.rhs_stream", (2, 0, 0)),
+    "cvxqp": ("cvxqp3_l.rhs_stream", (0, 2, 0)),
+    "banded": ("banded_1m.rhs_stream", (0, 0, 2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BUILD_COUNTS) + ["factorize_kp"])
+def test_a_build_counts_its_triangles(case):
+    name, want = BUILD_COUNTS.get(case, ("aug2d_l.rhs_stream", (0, 0, 0)))
+    cell = _cell(name)
+    prof.reset_launches()
+    if case == "factorize_kp":
+        # the harness's traced run factors K_P again for the rooflines
+        b0 = cell.base
+        factorize_kp(b0.G, b0.B, b0.C)
+    else:
+        _setup_M(cell)
+    c = prof.path_counts()
+    assert (c["tri_reduced_scan_builds"], c["tri_block_builds"],
+            c["tri_bidiag_builds"]) == want
+    assert (c["scan_pack_us"] > 0) is (want[0] > 0)
+    prof.reset_launches()
+    assert not any(prof.path_counts().values())
 
 
 def test_the_benchmark_names_the_ports_spans():
@@ -374,8 +448,51 @@ def test_the_card_pack_share_reads_the_counters(monkeypatch):
     assert read(run) is None
 
 
+def test_the_scan_pack_reader_reads_the_counter(monkeypatch):
+    _, run = _tiny_run("banded_1m.rhs_stream")
+    read = harness.metric_reader("precond.scan_pack_s")
+    monkeypatch.setattr(trisolve, "SCAN_PACK_US", 0)
+    assert read(run) is None
+    monkeypatch.setattr(trisolve, "SCAN_PACK_US", 2_500_000)
+    assert read(run) == pytest.approx(2.5)
+    # a program without the counter, or without any
+    monkeypatch.setitem(prof.__dict__, "PATH_COUNTERS", {
+        k: v for k, v in prof.PATH_COUNTERS.items() if k != "scan_pack_us"})
+    assert read(run) is None
+    monkeypatch.delattr(prof, "path_counts")
+    assert read(run) is None
+
+
 def _ev(name, cat, ts, dur):
     return {"name": name, "cat": cat, "ph": "X", "ts": ts, "dur": dur}
+
+
+def _band_run(events, triangles):
+    tr = Trace([_ev("portbench.request", "user_annotation", 0, 1000),
+                _ev("cpkrylov.solve", "user_annotation", 5, 990), *events])
+    return harness.Run(mix={"loop_span": "cpkrylov.solve"}, setup_s=1.0,
+                       window_s=1.0, trace=tr, triangles=triangles,
+                       requests=[harness.Request(
+                           index=0, pool_index=0, wall_s=1e-3, ptime_s=0.0,
+                           niters=1, solved=True, span=(0.0, 1000.0))])
+
+
+def test_the_band_tri_roofline_counts_solves_by_the_c_kernel():
+    c = "void (anonymous namespace)::band_c_kernel<double>(double const*)"
+    scan = "void (anonymous namespace)::affine_scan_kernel<double, true>()"
+    # two solves: B4's c kernel and its scan each, and a kernel of no solve
+    events = [_ev(c, "kernel", 10, 10), _ev(scan, "kernel", 20, 40),
+              _ev(c, "kernel", 100, 10), _ev(scan, "kernel", 110, 40),
+              _ev("void csr_spmv_kernel<double>()", "kernel", 200, 30)]
+    nnz, rows = 94_714_174, 298_935
+    read = harness.metric_reader("kernel.band_tri_roofline")
+    nbytes, flops = roofline.triangle_work(nnz, rows, 8)
+    least = roofline.least_s(nbytes, flops, "float64", roofline.peaks())
+    want = 100.0 * 2 * least / 100e-6
+    assert read(_band_run(events, {0: (nnz, rows)})) == pytest.approx(want)
+    # no factor of the request, or no solve in it: nothing to read
+    assert read(_band_run(events, {})) is None
+    assert read(_band_run(events[4:], {0: (nnz, rows)})) is None
 
 
 @pytest.mark.parametrize("metric", NEW_METRICS)

@@ -36,7 +36,12 @@ before its last line:
    ``spsolve_triangular``, with B4's split into its c and scan kernels,
    the bytes it moves, the scan's launch layout, and the scan's read floor
    (the same cluster and per-step slices with no chain between the
-   steps); the CSR SpMV (B5) on AUG2D-L's K_P and CVXQP3-L's A, K_P and
+   steps); B4 with its scan on each of B6's two layouts (the persistent
+   grid and the single cluster: the layout the shape takes, the grid's
+   blocks, x bit for bit between the two and a second call, each scan's
+   and each read floor's device ms), and the two layouts' crossover table
+   (``scan_crossover``: synthetic maps from p 8, r 2 to 1024, f64 and
+   f32, bits equal); the CSR SpMV (B5) on AUG2D-L's K_P and CVXQP3-L's A, K_P and
    B', f32 and f64, bit for bit against its plain version, a second call
    and the thread-a-row kernel it replaced (``tools/csr_spmv_rowthread.cu``,
    built beside the package's kernels), and against scipy, with its bound
@@ -784,7 +789,6 @@ def phase_mm_kernels(mm, device, results):
                                                      affine_scan_plain,
                                                      band_tri_solve,
                                                      band_tri_solve_plain,
-                                                     scan_layout,
                                                      scan_read_floor)
     from cpkrylov_tpu_torch.precond.trisolve import ReducedScanTriFactor
     from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
@@ -842,7 +846,7 @@ def phase_mm_kernels(mm, device, results):
             s_ms = sum(t for k, t in split.items()
                        if "affine_scan_kernel" in k)
             p, r, nb = tf.panel, tf.r, tf.nblocks
-            lay = scan_layout(p, r, dtype)
+            lay = scan_layout_taken(p, r, dtype, device)
             item = tf.inv_diag.element_size()
             # what this design moves: inv and W once, b read, c written
             # into x and read back by the scan, x written
@@ -865,6 +869,7 @@ def phase_mm_kernels(mm, device, results):
                                        f"{what} {e:.3e} > {BAND_TOL[tname]}")
             if dtype == torch.float64:      # the dtype of the path's solves
                 tri["max_abs_err"] = max(tri["max_abs_err"], err_abs)
+            hold_scan_paths(f"AUG2D-L {tname} {label}", tf, device)
 
             # B6 alone on this triangle's scan operands (W's negated tail
             # rows, c's tail entries), lane-major views as its contract has
@@ -906,7 +911,7 @@ def phase_mm_kernels(mm, device, results):
                   f"read_floor_b4_scan_device_ms={_fmt(fbdms)} "
                   f"read_floor_GBps="
                   f"{nb * r * r * item / (fdms or fms) / 1e6:.1f} "
-                  f"scan_layout={scan_layout(r, r, dtype)} "
+                  f"scan_layout={scan_layout_taken(r, r, dtype, device)} "
                   f"W_tail_GB={nb * r * r * item / 1e9:.4f}", flush=True)
             if not serr <= BAND_TOL[tname]:
                 raise RuntimeError(f"affine_scan {tname} {label}: error vs "
@@ -933,6 +938,7 @@ def phase_mm_kernels(mm, device, results):
             torch.cuda.empty_cache()
         if label == "L":
             del L1
+    scan_crossover(device)
     csr = results["csr_spmv"]
     cvx, hq, _, _ = mm["cvxqp3_l"]
     for label, mat in (("K_P aug2d_l", hf.ksp), ("A cvxqp3_l", cvx.A),
@@ -946,6 +952,138 @@ def phase_mm_kernels(mm, device, results):
                 "device_ms", "library_device_ms")})
     torch.cuda.empty_cache()
     phase_block_kernels(mm, device, results)
+
+
+def scan_layout_taken(q, r, dtype, device) -> dict:
+    """The layout B6 takes for q rows of reach r on this card
+    (``cuda_tri.scan_path``) and its launch shape there."""
+    from cpkrylov_tpu_torch.precond import cuda_tri
+
+    blocks = cuda_tri.resident_blocks(device)
+    path = cuda_tri.scan_path(q, r, blocks)
+    if path == "grid":
+        return {"path": path, **cuda_tri.scan_grid_layout(q, r, dtype,
+                                                          blocks)}
+    return {"path": path, **cuda_tri.scan_layout(q, r, dtype)}
+
+
+def hold_scan_paths(label, tf, device):
+    """B4 on a reduced-scan factor with its scan on each of B6's two
+    layouts: the layout the shape takes (``cuda_tri.scan_path``) and the
+    grid's blocks; x from the grid scan bit for bit against x from the
+    single-cluster scan and against a second grid call; the device ms of
+    each scan and of each layout's read floor (all p rows of W, c in x),
+    side by side."""
+    import numpy as np
+    import torch
+
+    from cpkrylov_tpu_torch.precond import cuda_tri
+
+    p, r, nb = tf.panel, tf.r, tf.nblocks
+    dtype = tf.w_blocks.dtype
+    blocks = cuda_tri.resident_blocks(device)
+    path = cuda_tri.scan_path(p, r, blocks)
+    b = torch.as_tensor(np.random.default_rng(23).standard_normal(tf.n)).to(
+        device=device, dtype=dtype)
+    xg = cuda_tri.band_tri_solve_on("grid", tf, b)
+    xg2 = cuda_tri.band_tri_solve_on("grid", tf, b)
+    xc = cuda_tri.band_tri_solve_on("cluster", tf, b)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(xg, xc))
+    again = bool(torch.equal(xg, xg2))
+    del xg, xg2, xc
+
+    def scan_ms(which):
+        split = device_ms_by_kernel(
+            lambda v: cuda_tri.band_tri_solve_on(which, tf, v), [(b,)])
+        return sum(t for k, t in split.items() if "affine_scan_kernel" in k)
+
+    c = torch.zeros(nb * p, dtype=dtype, device=device)
+    c[:tf.n] = b
+    c = torch.bmm(tf.inv_diag, c.view(nb, p, 1)).view(nb, p).T
+    wfull = tf.w_blocks.permute(1, 2, 0)
+    floor = {w: device_ms(lambda m_, c_: cuda_tri.scan_read_floor(
+        m_, c_, r, w), [(wfull, c)], iters=12) for w in ("grid", "cluster")}
+    got = {"path": path, "grid_ms": scan_ms("grid"),
+           "cluster_ms": scan_ms("cluster"),
+           "grid_floor_ms": floor["grid"],
+           "cluster_floor_ms": floor["cluster"], "bits_equal": same,
+           "repeats": again}
+    lay = cuda_tri.scan_grid_layout(p, r, dtype, blocks)
+    print(f"kernel affine_scan paths {label} p={p} r={r} nb={nb} "
+          f"path={path} grid_blocks={lay['blocks']} grid_layout={lay} "
+          f"grid_scan_device_ms={got['grid_ms']:.4f} "
+          f"cluster_scan_device_ms={got['cluster_ms']:.4f} "
+          f"grid_read_floor_device_ms={_fmt(floor['grid'])} "
+          f"cluster_read_floor_device_ms={_fmt(floor['cluster'])} "
+          f"x_grid_equals_x_cluster={same} x_grid_repeats={again}",
+          flush=True)
+    if not (same and again):
+        raise RuntimeError(f"affine_scan paths {label}: the grid scan's x "
+                           f"equals the cluster's: {same}, repeats: "
+                           f"{again}")
+    return got
+
+
+# The shapes of the crossover between B6's two layouts: (q, r), each run
+# on synthetic maps over as many steps as fit ~1.5 GB (at least 473, at
+# most 20,000): the schur_sharded p 8, r 2; CVXQP2-L's p 96, r 92;
+# AUG2D-L's 632, 631; steps between and past them; and panels of many head
+# rows (p 512, r 7; p 256, r 64), whose rows the grid shares out by 32.
+CROSSOVER_SHAPES = ((8, 2), (33, 32), (96, 92), (141, 140), (201, 200),
+                    (401, 400), (632, 631), (1024, 1024), (512, 7),
+                    (256, 64))
+
+
+def scan_crossover(device, shapes=CROSSOVER_SHAPES):
+    """B6 on both layouts at each shape of ``shapes``, f64 and f32: CUDA-
+    event ms a scan and µs a step, the layout the rule picks, and the
+    grid's bits against the cluster's (equal, or raise).  One line a shape
+    and dtype; returns the rows."""
+    import torch
+
+    from cpkrylov_tpu_torch.precond import cuda_tri
+    from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
+
+    rows = []
+    blocks = cuda_tri.resident_blocks(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(31)
+    for dtype in (torch.float64, torch.float32):
+        item = torch.empty((), dtype=dtype).element_size()
+        for q, r in shapes:
+            nb = max(473, min(20_000, int(1.5e9 // (q * r * item))))
+            m = (torch.randn((nb, q, r), generator=gen, device=device,
+                             dtype=dtype) * (0.5 / r ** 0.5)).permute(1, 2, 0)
+            c = torch.randn((q, nb), generator=gen, device=device,
+                            dtype=dtype)
+            yg = cuda_tri.scan_on("grid", m, c, r)
+            yc = cuda_tri.scan_on("cluster", m, c, r)
+            torch.cuda.synchronize()
+            if not torch.equal(yg, yc):
+                raise RuntimeError(f"scan_crossover q={q} r={r} {dtype}: "
+                                   "the grid's y differs from the cluster's")
+            ms = {w: cuda_time_ms(lambda: cuda_tri.scan_on(w, m, c, r),
+                                  iters=5, warmup=2)
+                  for w in ("grid", "cluster")}
+            row = {"dtype": str(dtype).split(".")[1], "q": q, "r": r,
+                   "nb": nb, "step_bytes": q * r * item,
+                   "grid_ms": ms["grid"], "cluster_ms": ms["cluster"],
+                   "grid_us_per_step": 1e3 * ms["grid"] / nb,
+                   "cluster_us_per_step": 1e3 * ms["cluster"] / nb,
+                   "rule": cuda_tri.scan_path(q, r, blocks)}
+            faster = "grid" if ms["grid"] < ms["cluster"] else "cluster"
+            print(f"kernel affine_scan crossover {row['dtype']} q={q} r={r} "
+                  f"nb={nb} step_bytes={row['step_bytes']} "
+                  f"grid_ms={ms['grid']:.4f} cluster_ms={ms['cluster']:.4f} "
+                  f"grid_us_per_step={row['grid_us_per_step']:.3f} "
+                  f"cluster_us_per_step={row['cluster_us_per_step']:.3f} "
+                  f"faster={faster} rule={row['rule']} bits_equal=True",
+                  flush=True)
+            rows.append(row)
+            del m, c, yg, yc
+            torch.cuda.empty_cache()
+    return rows
 
 
 def phase_block_kernels(mm, device, results):
@@ -2778,8 +2916,7 @@ def _hold_sweep_kernels(prob, sysm, M, device):
     from cpkrylov_tpu_torch.precond.cuda_tri import (affine_scan,
                                                      affine_scan_plain,
                                                      band_tri_solve,
-                                                     band_tri_solve_plain,
-                                                     scan_layout)
+                                                     band_tri_solve_plain)
     from cpkrylov_tpu_torch.precond.trisolve import (BlockTriFactor,
                                                      ReducedScanTriFactor)
 
@@ -2810,9 +2947,11 @@ def _hold_sweep_kernels(prob, sysm, M, device):
         print(f"mm_sweep {prob} kernel band_tri float64 {label} n={tf.n} "
               f"panel={p} r={r} nb={nb} rel_err_vs_plain={err:.3e} "
               f"repeat_equal={torch.equal(xk, xk2)} "
-              f"scan_layout={scan_layout(p, r, f64)} affine_scan "
+              f"scan_layout={scan_layout_taken(p, r, f64, device)} "
+              f"affine_scan "
               f"rel_err_vs_plain={serr:.3e} "
-              f"scan_layout={scan_layout(r, r, f64)}", flush=True)
+              f"scan_layout={scan_layout_taken(r, r, f64, device)}",
+              flush=True)
         if not (err <= BAND_TOL["float64"] and serr <= BAND_TOL["float64"]
                 and torch.equal(xk, xk2)):
             raise RuntimeError(f"mm_sweep {prob} {label}: B4 or B6 differs "

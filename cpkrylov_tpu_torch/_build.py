@@ -83,6 +83,24 @@ _KERNEL_SIGNATURES = {
     # q, r, out (5 ints: cluster, rows a block, rows a warp, warps, bytes)
     "cpkt_scan_layout_f32": (_I32, _I32, _P),
     "cpkt_scan_layout_f64": (_I32, _I32, _P),
+    # B6 on the persistent grid (and its read floor): B6's arguments, then
+    # the resident blocks and the stream's scan state, stream
+    "cpkt_affine_scan_grid_f32": (_P, _I64, _I64, _F64, _P, _I64, _I64, _P,
+                                  _I64, _I64, _I32, _I32, _I64, _I32, _P,
+                                  _P),
+    "cpkt_affine_scan_grid_f64": (_P, _I64, _I64, _F64, _P, _I64, _I64, _P,
+                                  _I64, _I64, _I32, _I32, _I64, _I32, _P,
+                                  _P),
+    "cpkt_scan_grid_read_floor_f32": (_P, _I64, _I64, _F64, _P, _I64, _I64,
+                                      _P, _I64, _I64, _I32, _I32, _I64,
+                                      _I32, _P, _P),
+    "cpkt_scan_grid_read_floor_f64": (_P, _I64, _I64, _F64, _P, _I64, _I64,
+                                      _P, _I64, _I64, _I32, _I32, _I64,
+                                      _I32, _P, _P),
+    # q, r, blocks, out (7 ints: blocks, rows a block, rows a warp, warps,
+    # ring slots a warp, ring bytes, static shared-memory bytes)
+    "cpkt_scan_grid_layout_f32": (_I32, _I32, _I32, _P),
+    "cpkt_scan_grid_layout_f64": (_I32, _I32, _I32, _P),
     # indptr (int64), indices (int32), data, tiles (int64: the first row of
     # each tile), ntiles, tile (entries a tile), nrows, nnz, x, y, stream
     "cpkt_csr_spmv_f32": (_P, _P, _P, _P, _I64, _I32, _I64, _I64, _P, _P,

@@ -21,6 +21,19 @@ launched.  ``affine_scan(mr, cr)`` is B6 under the JAX contract: ``mr
 state; it takes any strides (a map whose columns are not contiguous is
 copied step-major first: the kernel streams rows).
 
+B6 runs on a persistent grid (one block a SM for every 8 rows of M, at
+most r) that hands the state from step to step through the L2, one row of
+M a warp: laid out so, on the H100 it was as fast as the 16-block cluster
+that hands the state through distributed shared memory, or faster, at
+every shape measured (AUG2D-L's p 632, r 631: 2.1x).  :func:`scan_path`
+keeps the cluster for the shapes the grid cannot lay out one row a warp:
+panels of many more rows than the reach, which the port's panel rule never
+makes.  Both sum every dot product in the same order, so they give the
+same bits.  ``SCAN_GRID_LAUNCHES`` and ``SCAN_CLUSTER_LAUNCHES`` count the
+scans each took (``SCAN_LAUNCHES`` counts both).  ``scan_on``,
+``band_tri_solve_on`` and ``scan_read_floor`` run a named layout for
+measurements, uncounted.
+
 On a CUDA tensor each wrapper launches its kernel and raises on anything it
 does not take; a CPU tensor goes to the plain version
 (``band_tri_solve_plain``, ``affine_scan_plain``).  The plain scan is the
@@ -30,6 +43,7 @@ so the two agree to rounding, not bit for bit.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -38,8 +52,16 @@ from .trisolve import ReducedScanTriFactor, reduced_scan_tri_solve_plain
 
 LAUNCHES = 0        # B4 solves
 SCAN_LAUNCHES = 0   # B6 scans (alone, or inside a B4 solve)
+SCAN_GRID_LAUNCHES = 0      # ... of them on the persistent grid
+SCAN_CLUSTER_LAUNCHES = 0   # ... of them on one cluster
 
 MAX_PANEL = 1024    # csrc/band_tri.cu kMaxPanel: largest p and r
+MAX_GRID_BLOCKS = 256   # csrc/band_tri.cu kMaxGridBlocks
+GRID_ROWS = 8           # ... kGridRows: rows of M a grid block takes
+GRID_WARPS = 16         # ... kGridMaxWarps: warps a grid block runs
+# csrc/band_tri.cu kGridHeader + kGridStateWords: the grid scan's state
+# buffer in 64-bit words (a header, then two tagged copies of the state)
+_GRID_STATE_WORDS = 2 + 2 * MAX_PANEL * 2
 
 _C_ENTRY = {torch.float32: "cpkt_band_c_f32",
             torch.float64: "cpkt_band_c_f64"}
@@ -49,6 +71,19 @@ _FLOOR_ENTRY = {torch.float32: "cpkt_scan_read_floor_f32",
                 torch.float64: "cpkt_scan_read_floor_f64"}
 _LAYOUT_ENTRY = {torch.float32: "cpkt_scan_layout_f32",
                  torch.float64: "cpkt_scan_layout_f64"}
+_GRID_ENTRY = {torch.float32: "cpkt_affine_scan_grid_f32",
+               torch.float64: "cpkt_affine_scan_grid_f64"}
+_GRID_FLOOR_ENTRY = {torch.float32: "cpkt_scan_grid_read_floor_f32",
+                     torch.float64: "cpkt_scan_grid_read_floor_f64"}
+_GRID_LAYOUT_ENTRY = {torch.float32: "cpkt_scan_grid_layout_f32",
+                      torch.float64: "cpkt_scan_grid_layout_f64"}
+# layout -> (its chained scan's entries, its read floor's)
+_ON = {"grid": (_GRID_ENTRY, _GRID_FLOOR_ENTRY),
+       "cluster": (_SCAN_ENTRY, _FLOOR_ENTRY)}
+
+# (device index, stream handle) -> the grid scan's state on that stream
+_STATES: dict = {}
+_STATES_LOCK = threading.Lock()
 
 # The plain version of B4 is the reduced-scan math of trisolve.py.
 band_tri_solve_plain = reduced_scan_tri_solve_plain
@@ -80,10 +115,59 @@ def _check_cuda(name: str, ref: torch.Tensor, entry: dict, **tensors):
                              f"{ref.device}")
 
 
-def _scan_call(entry: dict, m: torch.Tensor, c: torch.Tensor,
+def grid_blocks(q: int, r: int, resident_blocks: int) -> int:
+    """Blocks of the grid scan for q rows of reach r on a card that keeps
+    ``resident_blocks`` resident (csrc/band_tri.cu ``grid_layout``): one
+    for every 8 rows, at most r, so that every block forms part of every
+    state."""
+    return min(resident_blocks, MAX_GRID_BLOCKS, r, -(-q // GRID_ROWS))
+
+
+def scan_path(q: int, r: int, resident_blocks: int) -> str:
+    """The layout B6 takes for q rows of reach r on a card that keeps
+    ``resident_blocks`` blocks of the grid scan resident (one a SM):
+    "grid" where each of its blocks' rows (the q - r head rows and the r
+    state rows shared out) fit its 16 warps one row a warp, else
+    "cluster".  On the H100 the grid laid out so was as fast as the
+    cluster or faster at every shape measured, and with 3 rows a warp
+    slower (``PERF.md`` §6: p 512, r 7 2.91 against 2.53 us a step)."""
+    g = grid_blocks(q, r, resident_blocks)
+    if -(-(q - r) // g) + -(-r // g) <= GRID_WARPS:
+        return "grid"
+    return "cluster"
+
+
+def resident_blocks(device: torch.device) -> int:
+    """Blocks of the grid scan the card keeps resident: one a SM (the
+    kernel takes :func:`grid_blocks` of them)."""
+    return min(torch.cuda.get_device_properties(device).multi_processor_count,
+               MAX_GRID_BLOCKS)
+
+
+def _state(device: torch.device, stream: int) -> torch.Tensor:
+    """The grid scan's self-resetting state for calls on ``stream`` (the
+    last tag, a counter and the tagged state): zeroed once when made, by
+    no call.  Never shared between streams."""
+    key = (device.index, stream)
+    with _STATES_LOCK:
+        buf = _STATES.get(key)
+        if buf is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "affine_scan: no grid scan state for this stream yet; "
+                    "make one call on the capture stream before capturing "
+                    "a graph")
+            buf = torch.zeros(_GRID_STATE_WORDS, dtype=torch.int64,
+                              device=device)
+            _STATES[key] = buf
+    return buf
+
+
+def _scan_call(path: str, entry: dict, m: torch.Tensor, c: torch.Tensor,
                y: torch.Tensor, r: int, alpha: float) -> None:
-    """Call a scan entry: y_i = alpha m_i s_{i-1} + c_i over the q rows of
-    ``m`` (q, r, nb) (unit column stride), s_i = y_i[q-r:]."""
+    """Call a scan entry of the layout ``path``: y_i = alpha m_i s_{i-1} +
+    c_i over the q rows of ``m`` (q, r, nb) (unit column stride), s_i =
+    y_i[q-r:]."""
     q, nb = int(m.shape[0]), int(m.shape[2])
     msj, msk, msi = m.stride()
     if msk != 1 and r > 1:
@@ -91,34 +175,53 @@ def _scan_call(entry: dict, m: torch.Tensor, c: torch.Tensor,
     csj, csi = c.stride()
     ysj, ysi = y.stride()
     stream = torch.cuda.current_stream(c.device).cuda_stream
-    status = getattr(_build.kernel_library(), entry[c.dtype])(
-        m.data_ptr(), msj, msi, alpha, c.data_ptr(), csj, csi, y.data_ptr(),
-        ysj, ysi, q, r, nb, stream)
+    args = (m.data_ptr(), msj, msi, alpha, c.data_ptr(), csj, csi,
+            y.data_ptr(), ysj, ysi, q, r, nb)
+    if path == "grid":
+        args += (resident_blocks(c.device),
+                 _state(c.device, stream).data_ptr())
+    status = getattr(_build.kernel_library(), entry[c.dtype])(*args, stream)
     _build.check(status, "affine_scan")
 
 
 def _launch_scan(m: torch.Tensor, c: torch.Tensor, y: torch.Tensor, r: int,
                  alpha: float) -> None:
-    """Launch B6 (counted)."""
-    global SCAN_LAUNCHES
-    _scan_call(_SCAN_ENTRY, m, c, y, r, alpha)
+    """Launch B6 on the layout its shape takes (counted)."""
+    global SCAN_LAUNCHES, SCAN_GRID_LAUNCHES, SCAN_CLUSTER_LAUNCHES
+    path = scan_path(int(m.shape[0]), r, resident_blocks(c.device))
+    _scan_call(path, _ON[path][0], m, c, y, r, alpha)
+    if path == "grid":
+        SCAN_GRID_LAUNCHES += 1
+    else:
+        SCAN_CLUSTER_LAUNCHES += 1
     SCAN_LAUNCHES += 1
 
 
-def scan_read_floor(m: torch.Tensor, c: torch.Tensor, r: int
-                    ) -> torch.Tensor:
-    """B6's reads without its chain, on the same cluster and slices: the
+def scan_on(path: str, m: torch.Tensor, c: torch.Tensor, r: int,
+            alpha: float = 1.0) -> torch.Tensor:
+    """B6 on the named layout ("grid" or "cluster"), whatever the shape
+    would take: a measurement, never a solve's path; not counted.  ``m``
+    (q, r, nb), ``c`` (q, nb); returns y (q, nb)."""
+    _check_cuda("scan_on", c, _ON[path][0], m=m)
+    y = torch.empty(c.shape, dtype=c.dtype, device=c.device)
+    _scan_call(path, _ON[path][0], m, c, y, r, alpha)
+    return y
+
+
+def scan_read_floor(m: torch.Tensor, c: torch.Tensor, r: int,
+                    path: str = "cluster") -> torch.Tensor:
+    """B6's reads without its chain, on the same layout and slices: the
     time of the scan's loads alone (a measurement, never a solve; not
     counted as a B6 launch).  ``m`` (q, r, nb), ``c`` (q, nb); the state
     stays zero, so the result equals ``c``."""
-    _check_cuda("scan_read_floor", c, _FLOOR_ENTRY, m=m)
+    _check_cuda("scan_read_floor", c, _ON[path][1], m=m)
     y = torch.empty(c.shape, dtype=c.dtype, device=c.device)
-    _scan_call(_FLOOR_ENTRY, m, c, y, r, 1.0)
+    _scan_call(path, _ON[path][1], m, c, y, r, 1.0)
     return y
 
 
 def scan_layout(q: int, r: int, dtype: torch.dtype) -> dict:
-    """The chained scan's launch layout on this card for q rows of reach
+    """The cluster scan's launch layout on this card for q rows of reach
     r: cluster blocks, rows of M a block and a warp own, warps a block,
     shared-memory ring bytes."""
     out = (ctypes.c_int * 5)()
@@ -127,6 +230,20 @@ def scan_layout(q: int, r: int, dtype: torch.dtype) -> dict:
     _build.check(status, "scan_layout")
     return dict(zip(("cluster", "rows_per_block", "rows_per_warp", "warps",
                      "ring_bytes"), list(out)))
+
+
+def scan_grid_layout(q: int, r: int, dtype: torch.dtype,
+                     blocks: int) -> dict:
+    """The grid scan's launch layout for q rows of reach r over ``blocks``
+    resident blocks: blocks, rows of M a block (at most) and a warp own,
+    warps a block, ring slots a warp, ring bytes (dynamic shared memory)
+    and the kernel's static shared-memory bytes."""
+    out = (ctypes.c_int * 7)()
+    status = getattr(_build.kernel_library(), _GRID_LAYOUT_ENTRY[dtype])(
+        q, r, blocks, ctypes.addressof(out))
+    _build.check(status, "scan_grid_layout")
+    return dict(zip(("blocks", "rows_per_block", "rows_per_warp", "warps",
+                     "slots", "ring_bytes", "static_bytes"), list(out)))
 
 
 def affine_scan(mr: torch.Tensor, cr: torch.Tensor) -> torch.Tensor:
@@ -154,11 +271,33 @@ def band_tri_solve(tf: ReducedScanTriFactor, b: torch.Tensor) -> torch.Tensor:
     """B4: solve T x = b for a reduced-scan factor; the CUDA kernels for a
     CUDA tensor, else the plain version."""
     global LAUNCHES
+    _check_rhs(tf, b)
+    if b.device.type == "cpu":
+        return band_tri_solve_plain(tf, b)
+    x = _band_tri(tf, b, _launch_scan)
+    LAUNCHES += 1
+    return x
+
+
+def band_tri_solve_on(path: str, tf: ReducedScanTriFactor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """B4 with its scan on the named layout ("grid" or "cluster"): a
+    measurement, never a solve's path; counts no launch."""
+    def scan(m, c, y, r, alpha):
+        _scan_call(path, _ON[path][0], m, c, y, r, alpha)
+    _check_rhs(tf, b)
+    return _band_tri(tf, b, scan)
+
+
+def _check_rhs(tf: ReducedScanTriFactor, b: torch.Tensor) -> None:
     if b.dim() != 1 or b.shape[0] != tf.n:
         raise ValueError(f"rhs has shape {tuple(b.shape)}, expected "
                          f"({tf.n},)")
-    if b.device.type == "cpu":
-        return band_tri_solve_plain(tf, b)
+
+
+def _band_tri(tf: ReducedScanTriFactor, b: torch.Tensor, scan
+              ) -> torch.Tensor:
+    """B4 on the card: the c kernel, then ``scan`` in place in x."""
     _check_cuda("band_tri_solve", b, _C_ENTRY, inv_diag=tf.inv_diag,
                 w_blocks=tf.w_blocks)
     p, r, nb = tf.panel, tf.r, tf.nblocks
@@ -181,6 +320,5 @@ def band_tri_solve(tf: ReducedScanTriFactor, b: torch.Tensor) -> torch.Tensor:
         stream)
     _build.check(status, "band_tri_solve (c = inv b)")
     xt = x.view(nb, p).T                                    # (p, nb)
-    _launch_scan(tf.w_blocks.permute(1, 2, 0), xt, xt, r, -1.0)
-    LAUNCHES += 1
+    scan(tf.w_blocks.permute(1, 2, 0), xt, xt, r, -1.0)
     return x[: tf.n]

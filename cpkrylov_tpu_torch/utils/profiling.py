@@ -29,9 +29,11 @@ on a CUDA device; ``dia_gate_refusals``, the CUDA-device attempts whose
 padded diagonals failed the caller's gate, which then keeps CSR;
 ``tri_reduced_scan_builds``, ``tri_block_builds`` and
 ``tri_bidiag_builds``, the triangles that ``precond/cp.py::_build_tri`` and
-``_build_tri_upper`` built in each form, on any device; and
+``_build_tri_upper`` built in each form, on any device;
 ``scan_pack_us``, the host microseconds spent in
-``precond/trisolve.py::pack_reduced_scan_np``).  :func:`reset_launches`
+``precond/trisolve.py::pack_reduced_scan_np``; and ``scan_grid_launches``
+and ``scan_cluster_launches``, the B6 scans of ``precond/cuda_tri.py`` on
+the persistent grid and on one cluster).  :func:`reset_launches`
 sets both kinds of counter to 0.
 
 Spans.  Every span of the port is a ``torch.profiler.record_function``
@@ -121,6 +123,10 @@ PATH_COUNTERS = {
     "tri_bidiag_builds": ("cpkrylov_tpu_torch.precond.cp",
                           "TRI_BIDIAG_BUILDS"),
     "scan_pack_us": ("cpkrylov_tpu_torch.precond.trisolve", "SCAN_PACK_US"),
+    "scan_grid_launches": ("cpkrylov_tpu_torch.precond.cuda_tri",
+                           "SCAN_GRID_LAUNCHES"),
+    "scan_cluster_launches": ("cpkrylov_tpu_torch.precond.cuda_tri",
+                              "SCAN_CLUSTER_LAUNCHES"),
 }
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

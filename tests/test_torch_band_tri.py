@@ -28,6 +28,7 @@ subdiagonals of N(0, 0.3^2)).
   factor (f32 only, so the f32 bound 1e-5).
 """
 import functools
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -212,6 +213,46 @@ def test_cpu_dispatch_counts_no_launch_and_checks_length():
     with pytest.raises(ValueError, match="rhs has shape"):
         band_tri_solve(tf, b[:-1])
     assert build_reduced_scan_tri(T, torch.float64, "cpu", panel=3) is None
+
+
+# (q, r, resident blocks, layout): the Schur path's p 8, r 2, steps of r
+# 16, CVXQP2-L's p 96, r 92, AUG2D-L's p 632, r 631, p 1024 and p 256, r
+# 64 lay out one row a warp on the H100's 132 SMs and take the grid;
+# panels of many more rows than the reach (p 512, r 7; p 1024, r 1), and
+# AUG2D-L on a card of 16 blocks, would put several rows on a warp and stay
+# on the cluster
+@pytest.mark.parametrize("q,r,blocks,path", [
+    (8, 2, 132, "grid"), (16, 16, 132, "grid"), (17, 16, 132, "grid"),
+    (96, 92, 132, "grid"), (33, 32, 132, "grid"), (632, 631, 132, "grid"),
+    (1024, 1024, 132, "grid"), (256, 64, 132, "grid"), (104, 100, 132, "grid"),
+    (512, 7, 132, "cluster"), (1024, 1, 132, "cluster"),
+    (632, 631, 79, "grid"), (632, 631, 16, "cluster"), (16, 9, 1, "grid"),
+    (17, 9, 1, "cluster"), (128, 121, 8, "cluster")])
+def test_scan_path_rule(q, r, blocks, path):
+    assert cuda_tri.scan_path(q, r, blocks) == path
+
+
+def test_scan_path_reads_only_its_arguments(monkeypatch):
+    """The layout follows from (q, r, resident blocks) alone: whether each
+    grid block's rows fit its 16 warps one row a warp, with at most r
+    blocks, the same answer on every call, whatever the environment
+    says."""
+    assert list(inspect.signature(cuda_tri.scan_path).parameters) == [
+        "q", "r", "resident_blocks"]
+    for q, r in ((8, 2), (96, 92), (632, 631), (512, 7), (1024, 1),
+                 (1000, 30), (256, 64)):
+        for blocks in (1, 2, 3, 16, 132, 256, 1000):
+            g = cuda_tri.grid_blocks(q, r, blocks)
+            assert 1 <= g <= min(blocks, r, cuda_tri.MAX_GRID_BLOCKS)
+            rows = -(-(q - r) // g) + -(-r // g)
+            want = "grid" if rows <= cuda_tri.GRID_WARPS else "cluster"
+            assert cuda_tri.scan_path(q, r, blocks) == want
+    assert cuda_tri.grid_blocks(632, 631, 132) == 79
+    assert cuda_tri.grid_blocks(512, 7, 132) == 7
+    assert cuda_tri.grid_blocks(1024, 1024, 132) == 128
+    assert cuda_tri.grid_blocks(1024, 1, 132) == 1
+    monkeypatch.setenv("CPKT_SCAN_PATH", "cluster")
+    assert cuda_tri.scan_path(8, 2, 132) == "grid"
 
 
 def _scan_states(tf, b):

@@ -442,7 +442,8 @@ def _rel2(x, ref):
                                            (6_000, 1024, 1024),
                                            (4096, 40, 128), (1500, 16, 16),
                                            (500, 7, 512), (10_001, 100, 104),
-                                           (3000, 3, 8)])
+                                           (3000, 3, 8), (5000, 7, 512),
+                                           (20_000, 64, 256)])
 def test_band_tri_kernel_matches_plain_and_scipy(cuda, dtype, n, reach,
                                                  panel):
     from cpkrylov_tpu_torch.precond import cuda_tri
@@ -520,6 +521,107 @@ def test_scan_layout_fits_one_block_per_sm(cuda, dtype, q, r):
     assert 1 <= lay["warps"] <= 32
     assert lay["ring_bytes"] >= lay["warps"] * 2 * r * item
     assert lay["ring_bytes"] + 2 * 1024 * item <= 232_448 - 2048
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("q,r", [(632, 631), (1024, 1024), (96, 92),
+                                 (8, 3), (512, 7), (256, 64), (512, 1),
+                                 (1024, 1)])
+def test_scan_grid_layout_fits_one_block_per_sm(cuda, dtype, q, r):
+    """The grid scan's layout gives every row a block (one block a SM for
+    every 8 rows, at most the resident blocks and r, the head and the state
+    rows each shared out), covers a block's rows with at most 16 warps of
+    at most 32 rows, holds two steps of a warp's rows in its ring (or its
+    16 slots), and the rings with the state, the mbarriers and the tag fit
+    the 227 KB a block may use; ``scan_path`` takes it where a warp holds
+    one row.  A shape whose block would need warps of more than 32 rows is
+    refused."""
+    from cpkrylov_tpu_torch.precond import cuda_tri
+
+    blocks = cuda_tri.resident_blocks(cuda)
+    g = cuda_tri.grid_blocks(q, r, blocks)
+    assert g == min(blocks, r, -(-q // 8))
+    rows = -(-(q - r) // g) + -(-r // g)
+    if rows > 16 * 32:
+        with pytest.raises(RuntimeError):
+            cuda_tri.scan_grid_layout(q, r, dtype, blocks)
+        assert cuda_tri.scan_path(q, r, blocks) == "cluster"
+        return
+    lay = cuda_tri.scan_grid_layout(q, r, dtype, blocks)
+    item = torch.empty((), dtype=dtype).element_size()
+    assert lay["blocks"] == g
+    assert lay["rows_per_block"] == rows
+    assert lay["rows_per_block"] * g >= q
+    assert lay["warps"] * lay["rows_per_warp"] >= lay["rows_per_block"]
+    assert 1 <= lay["warps"] <= 16
+    assert 1 <= lay["rows_per_warp"] <= 32
+    assert lay["slots"] >= min(2 * lay["rows_per_warp"], 16)
+    assert lay["ring_bytes"] >= lay["warps"] * lay["slots"] * r * item
+    assert lay["ring_bytes"] + lay["static_bytes"] <= 232_448
+    one_row = lay["rows_per_warp"] == 1
+    assert (cuda_tri.scan_path(q, r, blocks) == "grid") == one_row
+
+
+# (n, reach, panel): AUG2D-L's p and r, f32 shapes, panels of many head
+# rows and the Schur path's p 8, r 2
+@pytest.mark.parametrize("dtype,n,reach,panel", [
+    (torch.float64, 20_000, 631, 632), (torch.float32, 20_000, 631, 632),
+    (torch.float32, 20_000, 400, 408), (torch.float64, 6_000, 1024, 1024),
+    (torch.float64, 5000, 7, 512), (torch.float32, 20_000, 64, 256),
+    (torch.float64, 3000, 3, 8)])
+def test_grid_scan_gives_the_cluster_scans_bits(cuda, dtype, n, reach,
+                                                panel):
+    """B4 through the grid scan gives x bit for bit as through the
+    single-cluster scan, and as the layout the shape takes, and repeats
+    its bits."""
+    from cpkrylov_tpu_torch.precond import cuda_tri
+    from cpkrylov_tpu_torch.precond.trisolve import build_reduced_scan_tri
+
+    T = _banded_lower(n, reach, seed=reach)
+    tf = build_reduced_scan_tri(T, dtype, cuda, panel=panel)
+    b = torch.as_tensor(np.random.default_rng(n).standard_normal(n)).to(
+        device=cuda, dtype=dtype)
+    x = cuda_tri.band_tri_solve(tf, b)
+    x2 = cuda_tri.band_tri_solve(tf, b)
+    xc = cuda_tri.band_tri_solve_on("cluster", tf, b)
+    xg = cuda_tri.band_tri_solve_on("grid", tf, b)
+    torch.cuda.synchronize()
+    assert torch.equal(x, xc)
+    assert torch.equal(x, x2)
+    assert torch.equal(x, xg)
+
+
+# (n, reach, panel, resident blocks the solve sees, layout): the card's
+# own at AUG2D-L's shape, the Schur path's p 8, r 2 and a panel of many
+# more rows than its reach; AUG2D-L's shape on a card of 16 blocks
+@pytest.mark.parametrize("n,reach,panel,blocks,path", [
+    (20_000, 631, 632, None, "grid"), (3000, 3, 8, None, "grid"),
+    (5000, 7, 512, None, "cluster"), (20_000, 631, 632, 16, "cluster")])
+def test_scan_path_counters_count_each_layout(cuda, monkeypatch, n, reach,
+                                              panel, blocks, path):
+    """A B4 solve adds one to the counter of the layout its shape takes,
+    and none to the other; SCAN_LAUNCHES counts it either way."""
+    from cpkrylov_tpu_torch.precond import cuda_tri
+    from cpkrylov_tpu_torch.precond.trisolve import build_reduced_scan_tri
+    from cpkrylov_tpu_torch.utils import profiling
+
+    T = _banded_lower(n, reach, seed=3)
+    tf = build_reduced_scan_tri(T, torch.float64, cuda, panel=panel)
+    b64 = np.random.default_rng(n).standard_normal(n)
+    b = torch.as_tensor(b64).to(device=cuda)
+    if blocks is not None:
+        monkeypatch.setattr(cuda_tri, "resident_blocks", lambda _: blocks)
+    before = profiling.path_counts()
+    scans = cuda_tri.SCAN_LAUNCHES
+    x = cuda_tri.band_tri_solve(tf, b)
+    after = profiling.path_counts()
+    grid = after["scan_grid_launches"] - before["scan_grid_launches"]
+    cluster = (after["scan_cluster_launches"]
+               - before["scan_cluster_launches"])
+    assert (grid, cluster) == ((1, 0) if path == "grid" else (0, 1))
+    assert cuda_tri.SCAN_LAUNCHES == scans + 1
+    x_ref = spla.spsolve_triangular(T, b64, lower=True)
+    assert _rel2(x, x_ref) <= BAND_TOL[torch.float64]
 
 
 @functools.lru_cache(maxsize=1)

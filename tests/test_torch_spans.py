@@ -19,7 +19,7 @@ import torch
 import cpkrylov_tpu_torch as cpt
 from cpkrylov_tpu_torch import mixed
 from cpkrylov_tpu_torch.ops import dia as tdia
-from cpkrylov_tpu_torch.precond import trisolve
+from cpkrylov_tpu_torch.precond import cuda_tri, trisolve
 from cpkrylov_tpu_torch.precond.cp import factorize_kp
 from cpkrylov_tpu_torch.utils import device as devutil
 from cpkrylov_tpu_torch.utils import profiling as prof
@@ -34,7 +34,7 @@ NEW_METRICS = ("driver.pack_ms", "driver.upload_ms", "precond.ldl_ms",
                "krylov.apply_ms_per_iter", "krylov.host_reads_per_iter",
                "krylov.read_wait_ms_per_iter", "mixed.fallback_share",
                "driver.dia_card_pack_share", "kernel.band_tri_roofline",
-               "precond.scan_pack_s")
+               "precond.scan_pack_s", "kernel.scan_grid_share")
 # the AUG2D-L cell at grid 40: the reduced-scan factor at p 80, r 79
 AUG_GRID = 40
 
@@ -270,7 +270,8 @@ def _counts(loops, fallbacks):
     return {"mixed_device_loops": loops, "mixed_fallbacks": fallbacks,
             "dia_card_packs": 0, "dia_gate_refusals": 0,
             "tri_reduced_scan_builds": 0, "tri_block_builds": 0,
-            "tri_bidiag_builds": 0, "scan_pack_us": 0}
+            "tri_bidiag_builds": 0, "scan_pack_us": 0,
+            "scan_grid_launches": 0, "scan_cluster_launches": 0}
 
 
 def test_a_fallback_is_counted():
@@ -443,6 +444,27 @@ def test_the_card_pack_share_reads_the_counters(monkeypatch):
     monkeypatch.setitem(prof.__dict__, "PATH_COUNTERS", {
         k: v for k, v in prof.PATH_COUNTERS.items()
         if k.startswith("mixed")})
+    assert read(run) is None
+    monkeypatch.delattr(prof, "path_counts")
+    assert read(run) is None
+
+
+def test_the_scan_grid_share_reads_the_counters(monkeypatch):
+    _, run = _tiny_run("banded_1m.rhs_stream")
+    read = harness.metric_reader("kernel.scan_grid_share")
+    monkeypatch.setattr(cuda_tri, "SCAN_GRID_LAUNCHES", 0)
+    monkeypatch.setattr(cuda_tri, "SCAN_CLUSTER_LAUNCHES", 0)
+    assert read(run) is None
+    monkeypatch.setattr(cuda_tri, "SCAN_GRID_LAUNCHES", 28)
+    assert read(run) == pytest.approx(100.0)
+    monkeypatch.setattr(cuda_tri, "SCAN_CLUSTER_LAUNCHES", 4)
+    assert read(run) == pytest.approx(87.5)
+    monkeypatch.setattr(cuda_tri, "SCAN_GRID_LAUNCHES", 0)
+    assert read(run) == 0.0
+    # a program with the other counters alone, or with none
+    monkeypatch.setitem(prof.__dict__, "PATH_COUNTERS", {
+        k: v for k, v in prof.PATH_COUNTERS.items()
+        if not k.startswith("scan_")})
     assert read(run) is None
     monkeypatch.delattr(prof, "path_counts")
     assert read(run) is None

@@ -379,11 +379,11 @@ def phase_kernels(sysm, device, results):
                                              pack_df_dia)
     from cpkrylov_tpu_torch.ops.dia import dia_matvec, pack_dia
     from cpkrylov_tpu_torch.precond.cp import assemble_kp
-    from cpkrylov_tpu_torch.precond import cuda_bidiag
     from cpkrylov_tpu_torch.precond.cuda_bidiag import (TILE,
                                                          bidiag_read_floor,
                                                          bidiag_scan,
                                                          bidiag_scan_plain)
+    from cpkrylov_tpu_torch.utils.profiling import launch_counts
     from cpkrylov_tpu_torch.utils.timing import cuda_time_ms
 
     rng = np.random.default_rng(7)
@@ -452,9 +452,9 @@ def phase_kernels(sysm, device, results):
                     return torch.as_tensor(v).to(device=device, dtype=dtype)
 
                 ta, ti, tb = dev(a), dev(1.0 / dd), dev(b)
-                before = cuda_bidiag.LAUNCHES
+                before = launch_counts()["bidiag_scan"]
                 xk = bidiag_scan(ta, ti, tb, reverse)
-                per_call = cuda_bidiag.LAUNCHES - before
+                per_call = launch_counts()["bidiag_scan"] - before
                 xk2 = bidiag_scan(ta, ti, tb, reverse)
                 xp = bidiag_scan_plain(ta, ti, tb, reverse)
                 torch.cuda.synchronize()
@@ -973,11 +973,12 @@ def hold_scan_paths(label, tf, device):
     grid's blocks; x from the grid scan bit for bit against x from the
     single-cluster scan and against a second grid call; the device ms of
     each scan and of each layout's read floor (all p rows of W, c in x),
-    side by side."""
+    side by side.  The named-layout calls count nothing."""
     import numpy as np
     import torch
 
     from cpkrylov_tpu_torch.precond import cuda_tri
+    from cpkrylov_tpu_torch.utils.profiling import launch_counts, path_counts
 
     p, r, nb = tf.panel, tf.r, tf.nblocks
     dtype = tf.w_blocks.dtype
@@ -985,9 +986,13 @@ def hold_scan_paths(label, tf, device):
     path = cuda_tri.scan_path(p, r, blocks)
     b = torch.as_tensor(np.random.default_rng(23).standard_normal(tf.n)).to(
         device=device, dtype=dtype)
+    counts = (launch_counts(), path_counts())
     xg = cuda_tri.band_tri_solve_on("grid", tf, b)
     xg2 = cuda_tri.band_tri_solve_on("grid", tf, b)
     xc = cuda_tri.band_tri_solve_on("cluster", tf, b)
+    if (launch_counts(), path_counts()) != counts:
+        raise RuntimeError(f"affine_scan paths {label}: band_tri_solve_on "
+                           "counted a launch")
     torch.cuda.synchronize()
     same = bool(torch.equal(xg, xc))
     again = bool(torch.equal(xg, xg2))
@@ -3284,7 +3289,7 @@ def phase_operator_a(mm, device, card: str):
     import torch
 
     import cpkrylov_tpu_torch as cpt
-    from cpkrylov_tpu_torch.ops import cuda_spmv, spmv
+    from cpkrylov_tpu_torch.ops import spmv
     from cpkrylov_tpu_torch.ops.formats import csr_from_scipy
     from cpkrylov_tpu_torch.utils.profiling import (launch_counts,
                                                     reset_launches)
@@ -3298,10 +3303,10 @@ def phase_operator_a(mm, device, card: str):
     seen = {"calls": 0, "b5": 0}
 
     def amv(v):
-        before = cuda_spmv.LAUNCHES
+        before = launch_counts()["csr_spmv"]
         y = spmv.matvec(A_dev, v)
         seen["calls"] += 1
-        seen["b5"] += cuda_spmv.LAUNCHES - before
+        seen["b5"] += launch_counts()["csr_spmv"] - before
         return y
 
     A_op = cpt.aslinearoperator(amv, shape=sysm.A.shape)

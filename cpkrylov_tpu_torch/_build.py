@@ -12,10 +12,16 @@ package (a git-ignored directory):
 * ``libcpkt_native.so``: the host LDL^T (``native/*.cpp``), compiled by
   ``g++``.
 
-Every kernel entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a nonzero code into an exception.  A failed build raises
-:class:`BuildError`, which no caller catches: there is no fallback to the
-plain PyTorch versions for CUDA tensors, nor to another host factorization.
+Each wrapper declares the kernel entries it calls, once, as an
+:class:`Entry` beside the code that passes the arguments: the C name, the
+dtypes it is built for, its C argument types and the counters of
+``utils/profiling.py`` a launch adds to.  :meth:`Entry.launch` is the one
+way a kernel is launched: it picks the dtype's symbol, passes the current
+stream last, turns the ``cudaGetLastError()`` every launch entry returns
+into an exception (:func:`check`) and counts.  A new kernel is its ``.cu``
+and its wrapper.  A failed build raises :class:`BuildError`, which no caller
+catches: there is no fallback to the plain PyTorch versions for CUDA
+tensors, nor to another host factorization.
 """
 from __future__ import annotations
 
@@ -27,6 +33,10 @@ import subprocess
 import tempfile
 import threading
 import time
+
+import torch
+
+from .utils import profiling
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
@@ -41,95 +51,18 @@ GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 
-_P = ctypes.c_void_p
-_I64 = ctypes.c_int64
-_I32 = ctypes.c_int
-_F64 = ctypes.c_double
+# C argument types of the kernel entries: a pointer (device data or a
+# stream), an int, an int64_t, a double
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+I64 = ctypes.c_int64
+F64 = ctypes.c_double
+# what a launch or layout entry returns: a cudaError_t (an int), checked
+STATUS = "cudaError_t"
+_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 
-# C signatures of the kernel library: (name, argtypes).  Every function
-# returns an int (a cudaError_t) unless _RESTYPES says otherwise.
-_KERNEL_SIGNATURES = {
-    # data, offsets (int64, device), ndiag, nrows, ncols, x, y, stream
-    "cpkt_dia_spmv_f32": (_P, _P, _I32, _I64, _I64, _P, _P, _P),
-    "cpkt_dia_spmv_f64": (_P, _P, _I32, _I64, _I64, _P, _P, _P),
-    # a, invd, b, x, state (the stream's self-resetting words), n,
-    # reverse, stream
-    "cpkt_bidiag_scan_f32": (_P, _P, _P, _P, _P, _I64, _I32, _P),
-    "cpkt_bidiag_scan_f64": (_P, _P, _P, _P, _P, _I64, _I32, _P),
-    # B2's loads and stores without its look-back: a, invd, b, x, n,
-    # reverse, stream
-    "cpkt_bidiag_read_floor_f32": (_P, _P, _P, _P, _I64, _I32, _P),
-    "cpkt_bidiag_read_floor_f64": (_P, _P, _P, _P, _I64, _I32, _P),
-    # scan positions per tile
-    "cpkt_bidiag_tile": (),
-    # hi, lo, offsets (int64, device), ndiag, nrows, ncols, xh, xl, yh, yl,
-    # stream
-    "cpkt_df_dia_spmv_f32": (_P, _P, _P, _I32, _I64, _I64, _P, _P, _P, _P,
-                             _P),
-    # B4's first phase: inv, b, c (nb*p), n, p, nb, stream
-    "cpkt_band_c_f32": (_P, _P, _P, _I64, _I32, _I64, _P),
-    "cpkt_band_c_f64": (_P, _P, _P, _I64, _I32, _I64, _P),
-    # B6 (and its read floor): m (unit column stride) and its (row, step)
-    # strides, alpha, c and its (row, step) strides, y and its (row, step)
-    # strides, q, r, nb, stream
-    "cpkt_affine_scan_f32": (_P, _I64, _I64, _F64, _P, _I64, _I64, _P, _I64,
-                             _I64, _I32, _I32, _I64, _P),
-    "cpkt_affine_scan_f64": (_P, _I64, _I64, _F64, _P, _I64, _I64, _P, _I64,
-                             _I64, _I32, _I32, _I64, _P),
-    "cpkt_scan_read_floor_f32": (_P, _I64, _I64, _F64, _P, _I64, _I64, _P,
-                                 _I64, _I64, _I32, _I32, _I64, _P),
-    "cpkt_scan_read_floor_f64": (_P, _I64, _I64, _F64, _P, _I64, _I64, _P,
-                                 _I64, _I64, _I32, _I32, _I64, _P),
-    # q, r, out (5 ints: cluster, rows a block, rows a warp, warps, bytes)
-    "cpkt_scan_layout_f32": (_I32, _I32, _P),
-    "cpkt_scan_layout_f64": (_I32, _I32, _P),
-    # B6 on the persistent grid (and its read floor): B6's arguments, then
-    # the resident blocks and the stream's scan state, stream
-    "cpkt_affine_scan_grid_f32": (_P, _I64, _I64, _F64, _P, _I64, _I64, _P,
-                                  _I64, _I64, _I32, _I32, _I64, _I32, _P,
-                                  _P),
-    "cpkt_affine_scan_grid_f64": (_P, _I64, _I64, _F64, _P, _I64, _I64, _P,
-                                  _I64, _I64, _I32, _I32, _I64, _I32, _P,
-                                  _P),
-    "cpkt_scan_grid_read_floor_f32": (_P, _I64, _I64, _F64, _P, _I64, _I64,
-                                      _P, _I64, _I64, _I32, _I32, _I64,
-                                      _I32, _P, _P),
-    "cpkt_scan_grid_read_floor_f64": (_P, _I64, _I64, _F64, _P, _I64, _I64,
-                                      _P, _I64, _I64, _I32, _I32, _I64,
-                                      _I32, _P, _P),
-    # q, r, blocks, out (7 ints: blocks, rows a block, rows a warp, warps,
-    # ring slots a warp, ring bytes, static shared-memory bytes)
-    "cpkt_scan_grid_layout_f32": (_I32, _I32, _I32, _P),
-    "cpkt_scan_grid_layout_f64": (_I32, _I32, _I32, _P),
-    # indptr (int64), indices (int32), data, tiles (int64: the first row of
-    # each tile), ntiles, tile (entries a tile), nrows, nnz, x, y, stream
-    "cpkt_csr_spmv_f32": (_P, _P, _P, _P, _I64, _I32, _I64, _I64, _P, _P,
-                          _P),
-    "cpkt_csr_spmv_f64": (_P, _P, _P, _P, _I64, _I32, _I64, _I64, _P, _P,
-                          _P),
-    # out (3 ints: threads a block, largest tile, halo)
-    "cpkt_csr_spmv_layout": (_P,),
-    # src, dst, n, m, c, itemsize (4 or 8), stream
-    "cpkt_interleave": (_P, _P, _I64, _I64, _I64, _I32, _P),
-    "cpkt_uninterleave": (_P, _P, _I64, _I64, _I64, _I32, _P),
-    # B9: inv, off_data, off_cols, off_counts (int32), b, x (nb*p), scratch
-    # (p, when rhs is not on chip), n, p, nb, K, on_chip, stream
-    "cpkt_block_tri_f32": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64,
-                           _I32, _I32, _P),
-    "cpkt_block_tri_f64": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64,
-                           _I32, _I32, _P),
-    # the most shared memory a block may take on a device
-    "cpkt_smem_optin": (_I32,),
-    # B10: hi, lo, cols (int32), counts (int32), K, n, xh, xl, yh, yl,
-    # stream
-    "cpkt_df_tri_matvec_f32": (_P, _P, _P, _P, _I32, _I64, _P, _P, _P, _P,
-                               _P),
-}
-
-
-# functions that return something else than a cudaError_t
-_RESTYPES = {"cpkt_smem_optin": _I64, "cpkt_csr_spmv_layout": None}
-
+# C name without the dtype suffix -> its Entry: every declared entry
+ENTRIES: dict = {}
 
 class BuildError(Exception):
     """A native library could not be built.  Deliberately not a
@@ -230,10 +163,6 @@ def kernel_library() -> ctypes.CDLL:
         path = _install("libcpkt_kernels.so", deps,
                         lambda out, tmp: _compile_cuda(out, tmp, sources))
         lib = ctypes.CDLL(path)
-        for fn, argtypes in _KERNEL_SIGNATURES.items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = _RESTYPES.get(fn, ctypes.c_int)
         lib.cpkt_error_string.argtypes = [ctypes.c_int]
         lib.cpkt_error_string.restype = ctypes.c_char_p
         _LIBS["kernels"] = lib
@@ -266,3 +195,71 @@ def check(status: int, what: str) -> None:
     if status != 0:
         msg = kernel_library().cpkt_error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+class Entry:
+    """One entry of the kernel library, declared once by its wrapper.
+
+    ``stem`` is the C name; an entry built for ``dtypes`` has one symbol a
+    dtype, the stem with ``_f32`` or ``_f64``.  ``args`` are its C argument
+    types; a ``launch`` entry takes the stream after them.  ``restype`` is
+    what it returns: a ``STATUS`` is checked, anything else handed back.
+    Each launch adds one to each of ``counters`` (``utils/profiling.py``);
+    ``what`` names the entry in errors (the stem without ``cpkt_``)."""
+
+    def __init__(self, stem: str, args: tuple, *, dtypes: tuple = (),
+                 launch: bool = True, restype=STATUS, counters: tuple = (),
+                 what: str | None = None):
+        if stem in ENTRIES:
+            raise ValueError(f"kernel entry {stem} declared twice")
+        unknown = set(counters) - profiling.COUNTS.keys()
+        if unknown:
+            raise ValueError(f"{stem}: unknown counters {sorted(unknown)}")
+        self.stem, self.dtypes, self.is_launch = stem, tuple(dtypes), launch
+        self.argtypes = [*args, P] if launch else list(args)
+        self.restype, self.counters = restype, tuple(counters)
+        self.what = what or stem.removeprefix("cpkt_")
+        self._fns: dict = {}
+        ENTRIES[stem] = self
+
+    def symbols(self) -> dict:
+        """dtype (None for an entry without dtypes) -> C symbol."""
+        return ({d: self.stem + _SUFFIX[d] for d in self.dtypes}
+                or {None: self.stem})
+
+    def _fn(self, dtype):
+        """The symbol for ``dtype``, typed at its first call."""
+        fn = self._fns.get(dtype)
+        if fn is None:
+            name = self.symbols().get(dtype if self.dtypes else None)
+            if name is None:
+                raise TypeError(f"{self.what}: unsupported dtype {dtype}")
+            fn = getattr(kernel_library(), name)
+            fn.argtypes = self.argtypes
+            fn.restype = I32 if self.restype == STATUS else self.restype
+            self._fns[dtype] = fn
+        return fn
+
+    def launch(self, like: torch.Tensor, *args, stream: int | None = None,
+               counted: bool = True) -> None:
+        """Launch for ``like``'s dtype on the current stream of its device
+        (or ``stream``); raise on a CUDA error; count unless not
+        ``counted`` (a measurement)."""
+        fn = self._fns.get(like.dtype) or self._fn(like.dtype)
+        if stream is None:
+            stream = torch.cuda.current_stream(like.device).cuda_stream
+        status = fn(*args, stream)
+        if status:
+            check(status, self.what)
+        if counted:
+            for key in self.counters:
+                profiling.count(key)
+
+    def __call__(self, *args, dtype=None):
+        """Call a layout or query entry (no stream, never counted): its
+        value, or None for a checked status."""
+        out = self._fn(dtype)(*args)
+        if self.restype != STATUS:
+            return out
+        check(out, self.what)
+        return None

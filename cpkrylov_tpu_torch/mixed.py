@@ -50,19 +50,13 @@ from .precond.cp import check_spmv_format, make_preconditioner
 from .utils.device import host_read, resolve_device, upload
 from .utils.profiling import (MIXED_HOST_LOOP_SPAN, MIXED_LOOP_SPAN,
                               MIXED_PACK_SPAN, MIXED_READBACK_SPAN,
-                              MIXED_SPAN, span)
+                              MIXED_SPAN, count, span)
 from .utils.timing import sync
 
 _TINY32 = float(np.finfo(np.float32).tiny)
 # The default relative reduction asked of each f32 inner solve: about the
 # f32 stagnation floor (the JAX package's default).
 INNER_RTOL = 1.0e-4
-
-# Path counters (``utils/profiling.py::path_counts``): unforced device loops
-# that reached ``dispatch()``, and those of them that returned no answer and
-# sent the solve to the host loop.
-DEVICE_LOOPS = 0
-FALLBACKS = 0
 
 
 def _as_host_matrix(X, name: str):
@@ -393,7 +387,6 @@ def _try_solve_mixed_device(method, b, A, B, C, M32, opts, *,
                             inner_rtol, inner_stagwin, max_outer,
                             spmv_format, tile_rows, device, ptime, t_all,
                             forced):
-    global DEVICE_LOOPS, FALLBACKS
     solver = prepare_mixed_device(
         method, b, A, B, C, M32, opts, inner_rtol=inner_rtol,
         inner_stagwin=inner_stagwin, max_outer=max_outer,
@@ -405,7 +398,7 @@ def _try_solve_mixed_device(method, b, A, B, C, M32, opts, *,
                 "DIA form (diagonal C, banded A and B)")
         return None
     if not forced:
-        DEVICE_LOOPS += 1
+        count("mixed_device_loops")
     xh, xl, hist, iters, nouter, solved = solver.dispatch()
     with span(MIXED_READBACK_SPAN):
         x = df64.df_to_f64(xh, xl)
@@ -413,7 +406,7 @@ def _try_solve_mixed_device(method, b, A, B, C, M32, opts, *,
     if not solved and not forced:
         # The device loop has a fixed inner stagnation window; a coarsely
         # factorable K_P needs the escalating host loop.
-        FALLBACKS += 1
+        count("mixed_fallbacks")
         return None
     n = solver.n
     inner_iters = tuple(int(v) for v in iters[:nouter])

@@ -7,23 +7,25 @@ for CUDA tensors and raises on anything the kernel does not take; CPU
 tensors go to the plain PyTorch version (``ops/df64.py::df_dia_matvec``),
 which computes the same chain in the same order with the same roundings.
 
-``LAUNCHES`` counts kernel launches (one per product), so a run can show
-that its outer residuals went through the kernel.
+Each launch (one per product) counts ``df_dia_spmv``
+(``utils/profiling.py``), so a run can show that its outer residuals went
+through the kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .._build import I32, I64, P, Entry
 from .df64 import DFDia, df_dia_matvec
 
-LAUNCHES = 0
+# hi, lo, offsets (int64, device), ndiag, nrows, ncols, xh, xl, yh, yl
+_DF_DIA = Entry("cpkt_df_dia_spmv", (P, P, P, I32, I64, I64, P, P, P, P),
+                dtypes=(torch.float32,), counters=("df_dia_spmv",))
 
 
 def df_dia_spmv(mat: DFDia, xh: torch.Tensor, xl: torch.Tensor):
     """(yh, yl) = mat @ (xh, xl) in df64: the CUDA kernel for CUDA tensors,
     else the plain version."""
-    global LAUNCHES
     if xh.device.type == "cpu" and xl.device.type == "cpu":
         return df_dia_matvec(mat, (xh, xl))
     if xh.device.type != "cuda":
@@ -52,14 +54,9 @@ def df_dia_spmv(mat: DFDia, xh: torch.Tensor, xl: torch.Tensor):
             or mat.offsets_t.device != xh.device):
         raise ValueError("df_dia_spmv: offsets_t must be (ndiag,) int64 on "
                          "the vector's device")
-    lib = _build.kernel_library()
     yh = torch.empty(nrows, dtype=torch.float32, device=xh.device)
     yl = torch.empty(nrows, dtype=torch.float32, device=xh.device)
-    stream = torch.cuda.current_stream(xh.device).cuda_stream
-    status = lib.cpkt_df_dia_spmv_f32(
-        mat.hi.data_ptr(), mat.lo.data_ptr(), mat.offsets_t.data_ptr(),
-        mat.ndiag, nrows, ncols, xh.data_ptr(), xl.data_ptr(),
-        yh.data_ptr(), yl.data_ptr(), stream)
-    _build.check(status, "df_dia_spmv")
-    LAUNCHES += 1
+    _DF_DIA.launch(xh, mat.hi.data_ptr(), mat.lo.data_ptr(),
+                   mat.offsets_t.data_ptr(), mat.ndiag, nrows, ncols,
+                   xh.data_ptr(), xl.data_ptr(), yh.data_ptr(), yl.data_ptr())
     return yh, yl

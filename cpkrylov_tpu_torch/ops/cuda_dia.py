@@ -6,33 +6,32 @@ Replaces the JAX package's Pallas kernel ``ops/pallas_dia.py::_dia_kernel``.
 kernel does not take; a CPU tensor goes to the plain PyTorch version
 (``ops/dia.py::dia_matvec``), which computes the same sum in the same order.
 
-``LAUNCHES`` counts kernel launches (one per product), so a run can show that
-its SpMVs went through the kernel.
+Each launch (one per product) counts ``dia_spmv``
+(``utils/profiling.py``), so a run can show that its SpMVs went through the
+kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .._build import I32, I64, P, Entry
 from .dia import DIA, dia_matvec
 
-LAUNCHES = 0
-
-_ENTRY = {torch.float32: "cpkt_dia_spmv_f32",
-          torch.float64: "cpkt_dia_spmv_f64"}
+# data, offsets (int64, device), ndiag, nrows, ncols, x, y
+_DIA = Entry("cpkt_dia_spmv", (P, P, I32, I64, I64, P, P),
+             dtypes=(torch.float32, torch.float64), counters=("dia_spmv",))
 
 
 def dia_spmv(mat: DIA, x: torch.Tensor) -> torch.Tensor:
     """y = mat @ x: the CUDA kernel for a CUDA tensor, else the plain
     version."""
-    global LAUNCHES
     if x.device.type == "cpu":
         return dia_matvec(mat, x)
     if x.device.type != "cuda":
         raise ValueError(f"dia_spmv: unsupported device {x.device}")
     nrows, ncols = mat.shape
     data = mat.data
-    if x.dtype not in _ENTRY:
+    if x.dtype not in _DIA.dtypes:
         raise TypeError(f"dia_spmv: unsupported dtype {x.dtype}")
     if data.dtype != x.dtype:
         raise TypeError(f"dia_spmv: matrix dtype {data.dtype} != vector "
@@ -50,12 +49,7 @@ def dia_spmv(mat: DIA, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("dia_spmv: offsets_t must be (ndiag,) int64")
     if not x.is_contiguous():
         raise ValueError("dia_spmv: x must be contiguous")
-    lib = _build.kernel_library()
     y = torch.empty(nrows, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = getattr(lib, _ENTRY[x.dtype])(
-        data.data_ptr(), mat.offsets_t.data_ptr(), mat.ndiag, nrows, ncols,
-        x.data_ptr(), y.data_ptr(), stream)
-    _build.check(status, "dia_spmv")
-    LAUNCHES += 1
+    _DIA.launch(x, data.data_ptr(), mat.offsets_t.data_ptr(), mat.ndiag,
+                nrows, ncols, x.data_ptr(), y.data_ptr())
     return y

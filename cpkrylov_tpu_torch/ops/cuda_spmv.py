@@ -23,20 +23,24 @@ run to run.
 
 ``csr_spmv`` launches the kernel for a CUDA tensor and raises on anything
 it does not take; a CPU tensor goes to ``csr_matvec_plain``.  ``rmatvec``
-is the same function on the stored transpose.  ``LAUNCHES`` counts kernel
-launches (one per product).
+is the same function on the stored transpose.  Each launch (one per
+product) counts ``csr_spmv`` (``utils/profiling.py``).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from .. import _build
+from .._build import I32, I64, P, Entry
 from .formats import CSR, TILE_HALO
 
-LAUNCHES = 0
-
-_ENTRY = {torch.float32: "cpkt_csr_spmv_f32",
-          torch.float64: "cpkt_csr_spmv_f64"}
+# indptr (int64), indices (int32), data, tiles (int64: the first row of each
+# tile), ntiles, tile (entries a tile), nrows, nnz, x, y
+_CSR = Entry("cpkt_csr_spmv", (P, P, P, P, I64, I32, I64, I64, P, P),
+             dtypes=(torch.float32, torch.float64), counters=("csr_spmv",))
+# out (3 ints: threads a block, largest tile, halo)
+_LAYOUT = Entry("cpkt_csr_spmv_layout", (P,), launch=False, restype=None)
 
 
 def csr_matvec_plain(mat: CSR, x: torch.Tensor) -> torch.Tensor:
@@ -77,23 +81,20 @@ def csr_walk(mat: CSR) -> list:
 
 def layout() -> tuple:
     """(threads a block, largest tile, halo) of the built kernel."""
-    import ctypes
-
     out = (ctypes.c_int * 3)()
-    _build.kernel_library().cpkt_csr_spmv_layout(out)
+    _LAYOUT(out)
     return tuple(out)
 
 
 def csr_spmv(mat: CSR, x: torch.Tensor) -> torch.Tensor:
     """y = mat @ x: the CUDA kernel for a CUDA tensor, else the plain
     version."""
-    global LAUNCHES
     if x.device.type == "cpu":
         return csr_matvec_plain(mat, x)
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmv: unsupported device {x.device}")
     nrows, ncols = mat.shape
-    if x.dtype not in _ENTRY:
+    if x.dtype not in _CSR.dtypes:
         raise TypeError(f"csr_spmv: unsupported dtype {x.dtype}")
     if mat.data.dtype != x.dtype:
         raise TypeError(f"csr_spmv: matrix dtype {mat.data.dtype} != vector "
@@ -116,15 +117,11 @@ def csr_spmv(mat: CSR, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"csr_spmv: x has shape {tuple(x.shape)}, "
                          f"expected ({ncols},)")
     x = x.contiguous()
-    lib = _build.kernel_library()
     y = torch.empty(nrows, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = getattr(lib, _ENTRY[x.dtype])(
-        mat.indptr.data_ptr(), mat.indices.data_ptr(), mat.data.data_ptr(),
-        mat.tiles.data_ptr(), mat.tiles.shape[0] - 1, mat.tile, nrows,
-        mat.nnz, x.data_ptr(), y.data_ptr(), stream)
-    _build.check(status, "csr_spmv")
-    LAUNCHES += 1
+    _CSR.launch(x, mat.indptr.data_ptr(), mat.indices.data_ptr(),
+                mat.data.data_ptr(), mat.tiles.data_ptr(),
+                mat.tiles.shape[0] - 1, mat.tile, nrows, mat.nnz,
+                x.data_ptr(), y.data_ptr())
     return y
 
 

@@ -31,13 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import upload
+from ..utils.profiling import count
 
 MAX_FILL_RATIO = 4.5
-
-# Path counters (``utils/profiling.py::path_counts``): placements made on a
-# CUDA device, and CUDA-device attempts that the gate sent to CSR.
-CARD_PACKS = 0
-GATE_REFUSALS = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,8 +103,9 @@ def place_dia(csr: CSRArrays, max_slots: float,
     ``forms(csr.data)`` a zeroed ``(ndiag, nrows)`` stack holding each
     entry's form at ``[k, row]``.  Explicit zeros count as entries; a matrix
     with none gets the single offset 0.  None when ``ndiag * nrows`` would
-    exceed ``max_slots``.  The offsets are the one value read back."""
-    global CARD_PACKS, GATE_REFUSALS
+    exceed ``max_slots``.  The offsets are the one value read back.  On a
+    CUDA device it counts ``dia_card_packs`` or ``dia_gate_refusals``
+    (``utils/profiling.py``)."""
     nrows, ncols = csr.shape[::-1] if transpose else csr.shape
     dev = csr.data.device
     if csr.nnz:
@@ -126,7 +123,7 @@ def place_dia(csr: CSRArrays, max_slots: float,
         offsets = tuple(offsets_t.tolist())
         if len(offsets) * nrows > max_slots:
             if dev.type == "cuda":
-                GATE_REFUSALS += 1
+                count("dia_gate_refusals")
             return None
         slot = torch.cumsum(present, 0) - 1
         flat = slot[shifted] * nrows + rows
@@ -141,7 +138,7 @@ def place_dia(csr: CSRArrays, max_slots: float,
             out.view(-1)[flat] = vals
         stacks.append(out)
     if dev.type == "cuda":
-        CARD_PACKS += 1
+        count("dia_card_packs")
     return offsets, offsets_t, tuple(stacks)
 
 

@@ -47,7 +47,7 @@ from ..utils.device import (host_read, numpy_dtype, resolve_device,
                             torch_dtype, upload)
 from ..utils.profiling import (APPLY_SPAN, BUILD_LDL_SPAN, BUILD_ORDER_SPAN,
                                BUILD_PACK_SPAN, BUILD_PROBE_SPAN, BUILD_SPAN,
-                               span)
+                               count, span)
 from . import ldl_host
 from .cuda_bidiag import (BidiagTriFactor, build_bidiag_tri,
                           build_bidiag_tri_upper)
@@ -60,22 +60,16 @@ from .trisolve import (ReducedScanTriFactor, build_block_tri,
 # reduced-scan form (cp.py:256 of the JAX package).
 MAX_SCAN_BYTES = 2 << 30
 
-# Path counters (``utils/profiling.py::path_counts``): the triangles
-# ``_build_tri`` and ``_build_tri_upper`` built, by form.
-TRI_REDUCED_SCAN_BUILDS = 0
-TRI_BLOCK_BUILDS = 0
-TRI_BIDIAG_BUILDS = 0
-
 
 def _counted(tf):
-    """Count a built triangle by its form; returns it."""
-    global TRI_REDUCED_SCAN_BUILDS, TRI_BLOCK_BUILDS, TRI_BIDIAG_BUILDS
+    """Count a built triangle by its form (``tri_*_builds``,
+    ``utils/profiling.py``); returns it."""
     if isinstance(tf, ReducedScanTriFactor):
-        TRI_REDUCED_SCAN_BUILDS += 1
+        count("tri_reduced_scan_builds")
     elif isinstance(tf, BidiagTriFactor):
-        TRI_BIDIAG_BUILDS += 1
+        count("tri_bidiag_builds")
     else:
-        TRI_BLOCK_BUILDS += 1
+        count("tri_block_builds")
     return tf
 
 

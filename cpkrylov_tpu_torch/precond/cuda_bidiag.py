@@ -20,7 +20,8 @@ the two agree bit for bit.  The kernel is one launch a call: a single-pass
 scan whose tiles find their start states by a deterministic look-back over
 their predecessors' aggregates, with a small self-resetting state buffer
 per (device, stream) (``_state``), so a call can be captured in a CUDA
-graph.  ``LAUNCHES`` counts kernel launches (one per call).
+graph.  Each launch (one a call) counts ``bidiag_scan``
+(``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -30,15 +31,18 @@ import threading
 import numpy as np
 import torch
 
-from .. import _build
+from .._build import I32, I64, P, Entry
 from ..utils.device import upload
 
-LAUNCHES = 0
-
-_ENTRY = {torch.float32: "cpkt_bidiag_scan_f32",
-          torch.float64: "cpkt_bidiag_scan_f64"}
-_FLOOR_ENTRY = {torch.float32: "cpkt_bidiag_read_floor_f32",
-                torch.float64: "cpkt_bidiag_read_floor_f64"}
+_DTYPES = (torch.float32, torch.float64)
+# a, invd, b, x, state (the stream's self-resetting words), n, reverse
+_SCAN = Entry("cpkt_bidiag_scan", (P, P, P, P, P, I64, I32), dtypes=_DTYPES,
+              counters=("bidiag_scan",))
+# its loads and stores without the look-back: a, invd, b, x, n, reverse
+_FLOOR = Entry("cpkt_bidiag_read_floor", (P, P, P, P, I64, I32),
+               dtypes=_DTYPES)
+# scan positions a tile
+_TILE = Entry("cpkt_bidiag_tile", (), launch=False, restype=I32)
 
 # The kernel's shape (``bidiag_scan.cu``): scan positions a tile
 # (``cpkt_bidiag_tile()``), threads a block, positions a thread, warps and
@@ -79,7 +83,7 @@ def _bidiag_parts(T, upper: bool, dtype: torch.dtype):
     or ``dtype`` is neither float32 nor float64."""
     import scipy.sparse as sp
 
-    if dtype not in _ENTRY:
+    if dtype not in _DTYPES:
         return None
     coo = sp.csr_matrix(T).tocoo()
     n = T.shape[0]
@@ -279,14 +283,11 @@ def bidiag_read_floor(a: torch.Tensor, invd: torch.Tensor, b: torch.Tensor,
                       reverse: bool) -> torch.Tensor:
     """The kernel's loads and stores without the look-back: every tile
     starts from state 0, so only the first tile of the result is the
-    solution.  A measurement, never a solve; not counted in ``LAUNCHES``."""
+    solution.  A measurement, never a solve; not counted."""
     _check_cuda(a, invd, b)
     x = torch.empty_like(b)
-    status = getattr(_build.kernel_library(), _FLOOR_ENTRY[b.dtype])(
-        a.data_ptr(), invd.data_ptr(), b.data_ptr(), x.data_ptr(),
-        int(b.shape[0]), int(reverse),
-        torch.cuda.current_stream(b.device).cuda_stream)
-    _build.check(status, "bidiag_read_floor")
+    _FLOOR.launch(b, a.data_ptr(), invd.data_ptr(), b.data_ptr(),
+                  x.data_ptr(), int(b.shape[0]), int(reverse))
     return x
 
 
@@ -294,7 +295,7 @@ def _check_cuda(a, invd, b) -> int:
     """Check a call's operands for the kernel; returns its tiles."""
     if b.device.type != "cuda":
         raise ValueError(f"bidiag_scan: unsupported device {b.device}")
-    if b.dtype not in _ENTRY:
+    if b.dtype not in _DTYPES:
         raise TypeError(f"bidiag_scan: unsupported dtype {b.dtype}")
     n = int(b.shape[0])
     for name, t in (("a", a), ("invd", invd), ("b", b)):
@@ -314,7 +315,6 @@ def bidiag_scan(a: torch.Tensor, invd: torch.Tensor, b: torch.Tensor,
                 reverse: bool) -> torch.Tensor:
     """Solve the recurrence: the CUDA kernel for a CUDA tensor, else the
     plain version."""
-    global LAUNCHES
     if b.device.type == "cpu":
         return bidiag_scan_plain(a, invd, b, reverse)
     ntiles = _check_cuda(a, invd, b)
@@ -322,11 +322,9 @@ def bidiag_scan(a: torch.Tensor, invd: torch.Tensor, b: torch.Tensor,
     stream = torch.cuda.current_stream(b.device).cuda_stream
     state = _state(b.device, stream, ntiles)
     x = torch.empty(n, dtype=b.dtype, device=b.device)
-    status = getattr(_build.kernel_library(), _ENTRY[b.dtype])(
-        a.data_ptr(), invd.data_ptr(), b.data_ptr(), x.data_ptr(),
-        state.data_ptr(), n, int(reverse), stream)
-    _build.check(status, "bidiag_scan")
-    LAUNCHES += 1
+    _SCAN.launch(b, a.data_ptr(), invd.data_ptr(), b.data_ptr(),
+                 x.data_ptr(), state.data_ptr(), n, int(reverse),
+                 stream=stream)
     return x
 
 

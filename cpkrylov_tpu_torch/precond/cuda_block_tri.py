@@ -19,8 +19,8 @@ scratch buffer.  A CPU tensor goes to the plain version,
 ``block_tri_solve_plain``, the panel loop of the JAX package.  The kernel
 sums in a fixed order of its own, so it repeats its bits from call to
 call and agrees with the plain version to rounding;
-``block_tri_solve_lanes`` is a plain version that sums in that order.  ``LAUNCHES`` counts
-the kernel's launches, one a solve.
+``block_tri_solve_lanes`` is a plain version that sums in that order.  Each
+launch (one a solve) counts ``block_tri`` (``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -28,15 +28,19 @@ import functools
 
 import torch
 
-from .. import _build
+from .._build import I32, I64, P, Entry
 from .trisolve import BlockTriFactor
-
-LAUNCHES = 0
 
 MAX_ENTRIES = 1 << 31    # the kernel indexes x with int32 columns
 
-_ENTRY = {torch.float32: "cpkt_block_tri_f32",
-          torch.float64: "cpkt_block_tri_f64"}
+# inv, off_data, off_cols, off_counts (int32), b, x (nb*p), scratch (p, when
+# rhs is not on chip), n, p, nb, K, on_chip
+_BLOCK_TRI = Entry("cpkt_block_tri", (P, P, P, P, P, P, P, I64, I32, I64,
+                                      I32, I32),
+                   dtypes=(torch.float32, torch.float64),
+                   counters=("block_tri",))
+# the most shared memory a block may take on a device
+_SMEM_OPTIN = Entry("cpkt_smem_optin", (I32,), launch=False, restype=I64)
 
 
 def block_tri_solve_plain(tf: BlockTriFactor,
@@ -109,7 +113,7 @@ def block_tri_solve_lanes(tf: BlockTriFactor,
 def _smem_limit(index: int) -> int:
     """The most shared memory (bytes) a block may take on CUDA device
     ``index``, asked of the card once."""
-    limit = int(_build.kernel_library().cpkt_smem_optin(index))
+    limit = int(_SMEM_OPTIN(index))
     if limit < 0:
         raise RuntimeError(f"block_tri: cannot read the shared memory "
                            f"limit of CUDA device {index}")
@@ -132,7 +136,7 @@ def _check(tf: BlockTriFactor, b: torch.Tensor) -> None:
     if n_pad >= MAX_ENTRIES:
         raise ValueError(f"block_tri: needs nblocks * panel < 2**31, got "
                          f"{n_pad}")
-    if b.dtype not in _ENTRY:
+    if b.dtype not in _BLOCK_TRI.dtypes:
         raise TypeError(f"block_tri: unsupported dtype {b.dtype}")
     if b.device.type != "cuda":
         raise ValueError(f"block_tri: unsupported device {b.device}")
@@ -155,7 +159,6 @@ def _check(tf: BlockTriFactor, b: torch.Tensor) -> None:
 def block_tri(tf: BlockTriFactor, b: torch.Tensor) -> torch.Tensor:
     """B9: solve T x = b for a blocked-substitution factor; the CUDA kernel
     for a CUDA tensor, else the plain version."""
-    global LAUNCHES
     if b.dim() != 1 or b.shape[0] != tf.n:
         raise ValueError(f"rhs has shape {tuple(b.shape)}, expected "
                          f"({tf.n},)")
@@ -168,12 +171,9 @@ def block_tri(tf: BlockTriFactor, b: torch.Tensor) -> torch.Tensor:
     scratch = None if on_chip else torch.empty(p, dtype=b.dtype,
                                                device=b.device)
     x = torch.empty(nb * p, dtype=b.dtype, device=b.device)
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    status = getattr(_build.kernel_library(), _ENTRY[b.dtype])(
-        tf.inv_diag.data_ptr(), tf.off_data.data_ptr(),
+    _BLOCK_TRI.launch(
+        b, tf.inv_diag.data_ptr(), tf.off_data.data_ptr(),
         tf.off_cols.data_ptr(), tf.off_counts.data_ptr(), b.data_ptr(),
         x.data_ptr(), 0 if scratch is None else scratch.data_ptr(), tf.n, p,
-        nb, int(tf.off_data.shape[1]), int(on_chip), stream)
-    _build.check(status, "block_tri")
-    LAUNCHES += 1
+        nb, int(tf.off_data.shape[1]), int(on_chip))
     return x[: tf.n]

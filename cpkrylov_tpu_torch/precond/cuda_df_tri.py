@@ -12,18 +12,20 @@ padding slot maps the sums to a fixed point, so further padding slots
 change no bit, and kernel and plain version (``df_tri_matvec_plain``, every
 slot of every row) agree bit for bit; ``df_tri_matvec_walk`` is the plain
 version in the kernel's order.  A CPU tensor goes to the plain version; on
-a CUDA tensor the wrapper launches the kernel or raises.  ``LAUNCHES``
-counts the kernel's launches, one a product.
+a CUDA tensor the wrapper launches the kernel or raises.  Each launch (one
+a product) counts ``df_tri_matvec`` (``utils/profiling.py``).
 """
 from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .._build import I32, I64, P, Entry
 from ..ops import df64
 from .df_factor import DFTriMat
 
-LAUNCHES = 0
+# hi, lo, cols (int32), counts (int32), K, n, xh, xl, yh, yl
+_DF_TRI = Entry("cpkt_df_tri_matvec", (P, P, P, P, I32, I64, P, P, P, P),
+                dtypes=(torch.float32,), counters=("df_tri_matvec",))
 
 MAX_ENTRIES = 1 << 31    # the kernel indexes x with int32 columns
 
@@ -102,7 +104,6 @@ def _check(t: DFTriMat, xh: torch.Tensor, xl: torch.Tensor) -> None:
 def df_tri_matvec(t: DFTriMat, x: df64.DF) -> df64.DF:
     """B10: the df64 product T x; the CUDA kernel for CUDA tensors, else
     the plain version."""
-    global LAUNCHES
     xh, xl = x
     if xh.dim() != 1 or xh.shape[0] != t.n:
         raise ValueError(f"x has shape {tuple(xh.shape)}, expected "
@@ -113,11 +114,7 @@ def df_tri_matvec(t: DFTriMat, x: df64.DF) -> df64.DF:
     _check(t, xh, xl)
     yh = torch.empty_like(xh)
     yl = torch.empty_like(xh)
-    stream = torch.cuda.current_stream(xh.device).cuda_stream
-    status = _build.kernel_library().cpkt_df_tri_matvec_f32(
-        t.hi.data_ptr(), t.lo.data_ptr(), t.cols.data_ptr(),
-        t.counts.data_ptr(), int(t.hi.shape[0]), t.n, xh.data_ptr(),
-        xl.data_ptr(), yh.data_ptr(), yl.data_ptr(), stream)
-    _build.check(status, "df_tri_matvec")
-    LAUNCHES += 1
+    _DF_TRI.launch(xh, t.hi.data_ptr(), t.lo.data_ptr(), t.cols.data_ptr(),
+                   t.counts.data_ptr(), int(t.hi.shape[0]), t.n,
+                   xh.data_ptr(), xl.data_ptr(), yh.data_ptr(), yl.data_ptr())
     return yh, yl

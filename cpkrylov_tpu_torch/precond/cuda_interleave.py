@@ -15,16 +15,20 @@ y-entry per group, then the contiguous x-tail:
 as one launch over the whole vector (head and tail) for a CUDA tensor; a CPU
 tensor goes to the plain versions, the reshape and concatenation chains.
 Both move entries without arithmetic, so kernel and plain version agree bit
-for bit.  ``LAUNCHES`` and ``INV_LAUNCHES`` count the two kernels' launches.
+for bit.  Their launches count ``interleave`` and ``uninterleave``
+(``utils/profiling.py``).
 """
 from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .._build import I32, I64, P, Entry
 
-LAUNCHES = 0
-INV_LAUNCHES = 0
+# src, dst, n, m, c, itemsize (4 or 8)
+_INTERLEAVE = Entry("cpkt_interleave", (P, P, I64, I64, I64, I32),
+                    counters=("interleave",))
+_UNINTERLEAVE = Entry("cpkt_uninterleave", (P, P, I64, I64, I64, I32),
+                      counters=("uninterleave",))
 # the kernels index with 32-bit integers
 MAX_ENTRIES = 1 << 31
 
@@ -45,9 +49,9 @@ def uninterleave_plain(w: torch.Tensor, n: int, m: int,
     return torch.cat([g[:, :c].reshape(-1), w[m * (c + 1):], g[:, c]])
 
 
-def _launch(entry: str, src: torch.Tensor, n: int, m: int,
+def _launch(entry: Entry, src: torch.Tensor, n: int, m: int,
             c: int) -> torch.Tensor:
-    what = entry.removeprefix("cpkt_")
+    what = entry.what
     if src.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {src.device}")
     if src.element_size() not in (4, 8):
@@ -58,32 +62,23 @@ def _launch(entry: str, src: torch.Tensor, n: int, m: int,
     if src.dim() != 1 or src.shape[0] != n + m or not src.is_contiguous():
         raise ValueError(f"{what}: input must be a contiguous ({n + m},) "
                          f"tensor, got {tuple(src.shape)}")
-    lib = _build.kernel_library()
     out = torch.empty_like(src)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    status = getattr(lib, entry)(src.data_ptr(), out.data_ptr(), n, m, c,
-                                 src.element_size(), stream)
-    _build.check(status, what)
+    entry.launch(src, src.data_ptr(), out.data_ptr(), n, m, c,
+                 src.element_size())
     return out
 
 
 def interleave(z: torch.Tensor, n: int, m: int, c: int) -> torch.Tensor:
     """``z[perm]``: the CUDA kernel for a CUDA tensor, else the plain
     version."""
-    global LAUNCHES
     if z.device.type == "cpu":
         return interleave_plain(z, n, m, c)
-    out = _launch("cpkt_interleave", z, n, m, c)
-    LAUNCHES += 1
-    return out
+    return _launch(_INTERLEAVE, z, n, m, c)
 
 
 def uninterleave(w: torch.Tensor, n: int, m: int, c: int) -> torch.Tensor:
     """The inverse riffle: the CUDA kernel for a CUDA tensor, else the plain
     version."""
-    global INV_LAUNCHES
     if w.device.type == "cpu":
         return uninterleave_plain(w, n, m, c)
-    out = _launch("cpkt_uninterleave", w, n, m, c)
-    INV_LAUNCHES += 1
-    return out
+    return _launch(_UNINTERLEAVE, w, n, m, c)

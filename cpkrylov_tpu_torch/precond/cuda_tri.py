@@ -14,12 +14,12 @@ computes x = T^-1 b for it as
 nb p entries), then B6 on all p rows of W in place (through the same
 launcher as ``affine_scan``, which counts it): each scan step forms the
 whole of x_i from W_i and the state, and its last r entries are the next
-state, so W is read once.  It counts one B4 solve: ``LAUNCHES`` for B4 and
-``SCAN_LAUNCHES`` for B6 are each added to where their kernels are
-launched.  ``affine_scan(mr, cr)`` is B6 under the JAX contract: ``mr
-(r, r, nb)``, ``cr (r, nb)`` -> the inclusive ``s (r, nb)`` from a zero
-state; it takes any strides (a map whose columns are not contiguous is
-copied step-major first: the kernel streams rows).
+state, so W is read once.  It counts one ``band_tri`` solve, and its
+scan one ``affine_scan`` (``utils/profiling.py``).  ``affine_scan(mr,
+cr)`` is B6 under the JAX contract: ``mr (r, r, nb)``, ``cr (r, nb)`` ->
+the inclusive ``s (r, nb)`` from a zero state; it takes any strides (a
+map whose columns are not contiguous is copied step-major first: the
+kernel streams rows).
 
 B6 runs on a persistent grid (one block a SM for every 8 rows of M, at
 most r) that hands the state from step to step through the L2, one row of
@@ -29,8 +29,8 @@ every shape measured (AUG2D-L's p 632, r 631: 2.1x).  :func:`scan_path`
 keeps the cluster for the shapes the grid cannot lay out one row a warp:
 panels of many more rows than the reach, which the port's panel rule never
 makes.  Both sum every dot product in the same order, so they give the
-same bits.  ``SCAN_GRID_LAUNCHES`` and ``SCAN_CLUSTER_LAUNCHES`` count the
-scans each took (``SCAN_LAUNCHES`` counts both).  ``scan_on``,
+same bits.  ``scan_grid_launches`` and ``scan_cluster_launches`` count the
+scans each took (``affine_scan`` counts both).  ``scan_on``,
 ``band_tri_solve_on`` and ``scan_read_floor`` run a named layout for
 measurements, uncounted.
 
@@ -47,13 +47,9 @@ import threading
 
 import torch
 
-from .. import _build
+from .._build import F64, I32, I64, P, Entry
+from ..utils.profiling import count
 from .trisolve import ReducedScanTriFactor, reduced_scan_tri_solve_plain
-
-LAUNCHES = 0        # B4 solves
-SCAN_LAUNCHES = 0   # B6 scans (alone, or inside a B4 solve)
-SCAN_GRID_LAUNCHES = 0      # ... of them on the persistent grid
-SCAN_CLUSTER_LAUNCHES = 0   # ... of them on one cluster
 
 MAX_PANEL = 1024    # csrc/band_tri.cu kMaxPanel: largest p and r
 MAX_GRID_BLOCKS = 256   # csrc/band_tri.cu kMaxGridBlocks
@@ -63,23 +59,36 @@ GRID_WARPS = 16         # ... kGridMaxWarps: warps a grid block runs
 # buffer in 64-bit words (a header, then two tagged copies of the state)
 _GRID_STATE_WORDS = 2 + 2 * MAX_PANEL * 2
 
-_C_ENTRY = {torch.float32: "cpkt_band_c_f32",
-            torch.float64: "cpkt_band_c_f64"}
-_SCAN_ENTRY = {torch.float32: "cpkt_affine_scan_f32",
-               torch.float64: "cpkt_affine_scan_f64"}
-_FLOOR_ENTRY = {torch.float32: "cpkt_scan_read_floor_f32",
-                torch.float64: "cpkt_scan_read_floor_f64"}
-_LAYOUT_ENTRY = {torch.float32: "cpkt_scan_layout_f32",
-                 torch.float64: "cpkt_scan_layout_f64"}
-_GRID_ENTRY = {torch.float32: "cpkt_affine_scan_grid_f32",
-               torch.float64: "cpkt_affine_scan_grid_f64"}
-_GRID_FLOOR_ENTRY = {torch.float32: "cpkt_scan_grid_read_floor_f32",
-                     torch.float64: "cpkt_scan_grid_read_floor_f64"}
-_GRID_LAYOUT_ENTRY = {torch.float32: "cpkt_scan_grid_layout_f32",
-                      torch.float64: "cpkt_scan_grid_layout_f64"}
-# layout -> (its chained scan's entries, its read floor's)
-_ON = {"grid": (_GRID_ENTRY, _GRID_FLOOR_ENTRY),
-       "cluster": (_SCAN_ENTRY, _FLOOR_ENTRY)}
+_DTYPES = (torch.float32, torch.float64)
+# B4's first phase: inv, b, c (nb*p), n, p, nb
+_BAND_C = Entry("cpkt_band_c", (P, P, P, I64, I32, I64), dtypes=_DTYPES,
+                what="band_tri_solve (c = inv b)")
+# B6 and its read floor on one cluster: m (unit column stride) and its (row,
+# step) strides, alpha, c and its (row, step) strides, y and its (row, step)
+# strides, q, r, nb; on the persistent grid also the resident blocks and the
+# stream's scan state
+_SCAN_ARGS = (P, I64, I64, F64, P, I64, I64, P, I64, I64, I32, I32, I64)
+_GRID_ARGS = _SCAN_ARGS + (I32, P)
+_CLUSTER_SCAN = Entry("cpkt_affine_scan", _SCAN_ARGS, dtypes=_DTYPES,
+                      counters=("affine_scan", "scan_cluster_launches"),
+                      what="affine_scan")
+_CLUSTER_FLOOR = Entry("cpkt_scan_read_floor", _SCAN_ARGS, dtypes=_DTYPES,
+                       what="affine_scan")
+_GRID_SCAN = Entry("cpkt_affine_scan_grid", _GRID_ARGS, dtypes=_DTYPES,
+                   counters=("affine_scan", "scan_grid_launches"),
+                   what="affine_scan")
+_GRID_FLOOR = Entry("cpkt_scan_grid_read_floor", _GRID_ARGS,
+                    dtypes=_DTYPES, what="affine_scan")
+# q, r, out (5 ints: cluster, rows a block, rows a warp, warps, bytes)
+_LAYOUT = Entry("cpkt_scan_layout", (I32, I32, P), dtypes=_DTYPES,
+                launch=False)
+# q, r, blocks, out (7 ints: blocks, rows a block, rows a warp, warps, ring
+# slots a warp, ring bytes, static shared-memory bytes)
+_GRID_LAYOUT = Entry("cpkt_scan_grid_layout", (I32, I32, I32, P),
+                     dtypes=_DTYPES, launch=False)
+# layout -> (its chained scan, its read floor)
+_ON = {"grid": (_GRID_SCAN, _GRID_FLOOR),
+       "cluster": (_CLUSTER_SCAN, _CLUSTER_FLOOR)}
 
 # (device index, stream handle) -> the grid scan's state on that stream
 _STATES: dict = {}
@@ -102,10 +111,10 @@ def affine_scan_plain(mr: torch.Tensor, cr: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def _check_cuda(name: str, ref: torch.Tensor, entry: dict, **tensors):
+def _check_cuda(name: str, ref: torch.Tensor, **tensors):
     if ref.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {ref.device}")
-    if ref.dtype not in entry:
+    if ref.dtype not in _DTYPES:
         raise TypeError(f"{name}: unsupported dtype {ref.dtype}")
     for label, t in tensors.items():
         if t.dtype != ref.dtype:
@@ -163,9 +172,10 @@ def _state(device: torch.device, stream: int) -> torch.Tensor:
     return buf
 
 
-def _scan_call(path: str, entry: dict, m: torch.Tensor, c: torch.Tensor,
-               y: torch.Tensor, r: int, alpha: float) -> None:
-    """Call a scan entry of the layout ``path``: y_i = alpha m_i s_{i-1} +
+def _scan_call(path: str, entry: Entry, m: torch.Tensor, c: torch.Tensor,
+               y: torch.Tensor, r: int, alpha: float,
+               counted: bool = True) -> None:
+    """Launch a scan entry of the layout ``path``: y_i = alpha m_i s_{i-1} +
     c_i over the q rows of ``m`` (q, r, nb) (unit column stride), s_i =
     y_i[q-r:]."""
     q, nb = int(m.shape[0]), int(m.shape[2])
@@ -180,21 +190,14 @@ def _scan_call(path: str, entry: dict, m: torch.Tensor, c: torch.Tensor,
     if path == "grid":
         args += (resident_blocks(c.device),
                  _state(c.device, stream).data_ptr())
-    status = getattr(_build.kernel_library(), entry[c.dtype])(*args, stream)
-    _build.check(status, "affine_scan")
+    entry.launch(c, *args, stream=stream, counted=counted)
 
 
 def _launch_scan(m: torch.Tensor, c: torch.Tensor, y: torch.Tensor, r: int,
                  alpha: float) -> None:
     """Launch B6 on the layout its shape takes (counted)."""
-    global SCAN_LAUNCHES, SCAN_GRID_LAUNCHES, SCAN_CLUSTER_LAUNCHES
     path = scan_path(int(m.shape[0]), r, resident_blocks(c.device))
     _scan_call(path, _ON[path][0], m, c, y, r, alpha)
-    if path == "grid":
-        SCAN_GRID_LAUNCHES += 1
-    else:
-        SCAN_CLUSTER_LAUNCHES += 1
-    SCAN_LAUNCHES += 1
 
 
 def scan_on(path: str, m: torch.Tensor, c: torch.Tensor, r: int,
@@ -202,9 +205,9 @@ def scan_on(path: str, m: torch.Tensor, c: torch.Tensor, r: int,
     """B6 on the named layout ("grid" or "cluster"), whatever the shape
     would take: a measurement, never a solve's path; not counted.  ``m``
     (q, r, nb), ``c`` (q, nb); returns y (q, nb)."""
-    _check_cuda("scan_on", c, _ON[path][0], m=m)
+    _check_cuda("scan_on", c, m=m)
     y = torch.empty(c.shape, dtype=c.dtype, device=c.device)
-    _scan_call(path, _ON[path][0], m, c, y, r, alpha)
+    _scan_call(path, _ON[path][0], m, c, y, r, alpha, counted=False)
     return y
 
 
@@ -214,7 +217,7 @@ def scan_read_floor(m: torch.Tensor, c: torch.Tensor, r: int,
     time of the scan's loads alone (a measurement, never a solve; not
     counted as a B6 launch).  ``m`` (q, r, nb), ``c`` (q, nb); the state
     stays zero, so the result equals ``c``."""
-    _check_cuda("scan_read_floor", c, _ON[path][1], m=m)
+    _check_cuda("scan_read_floor", c, m=m)
     y = torch.empty(c.shape, dtype=c.dtype, device=c.device)
     _scan_call(path, _ON[path][1], m, c, y, r, 1.0)
     return y
@@ -225,9 +228,7 @@ def scan_layout(q: int, r: int, dtype: torch.dtype) -> dict:
     r: cluster blocks, rows of M a block and a warp own, warps a block,
     shared-memory ring bytes."""
     out = (ctypes.c_int * 5)()
-    status = getattr(_build.kernel_library(), _LAYOUT_ENTRY[dtype])(
-        q, r, ctypes.addressof(out))
-    _build.check(status, "scan_layout")
+    _LAYOUT(q, r, ctypes.addressof(out), dtype=dtype)
     return dict(zip(("cluster", "rows_per_block", "rows_per_warp", "warps",
                      "ring_bytes"), list(out)))
 
@@ -239,9 +240,7 @@ def scan_grid_layout(q: int, r: int, dtype: torch.dtype,
     warps a block, ring slots a warp, ring bytes (dynamic shared memory)
     and the kernel's static shared-memory bytes."""
     out = (ctypes.c_int * 7)()
-    status = getattr(_build.kernel_library(), _GRID_LAYOUT_ENTRY[dtype])(
-        q, r, blocks, ctypes.addressof(out))
-    _build.check(status, "scan_grid_layout")
+    _GRID_LAYOUT(q, r, blocks, ctypes.addressof(out), dtype=dtype)
     return dict(zip(("blocks", "rows_per_block", "rows_per_warp", "warps",
                      "slots", "ring_bytes", "static_bytes"), list(out)))
 
@@ -251,7 +250,7 @@ def affine_scan(mr: torch.Tensor, cr: torch.Tensor) -> torch.Tensor:
     the CUDA kernel for a CUDA tensor, else the plain version."""
     if cr.device.type == "cpu":
         return affine_scan_plain(mr, cr)
-    _check_cuda("affine_scan", cr, _SCAN_ENTRY, mr=mr)
+    _check_cuda("affine_scan", cr, mr=mr)
     if cr.dim() != 2 or mr.dim() != 3:
         raise ValueError("affine_scan: expected mr (r, r, nb) and cr (r, nb)")
     r, nb = int(cr.shape[0]), int(cr.shape[1])
@@ -270,12 +269,11 @@ def affine_scan(mr: torch.Tensor, cr: torch.Tensor) -> torch.Tensor:
 def band_tri_solve(tf: ReducedScanTriFactor, b: torch.Tensor) -> torch.Tensor:
     """B4: solve T x = b for a reduced-scan factor; the CUDA kernels for a
     CUDA tensor, else the plain version."""
-    global LAUNCHES
     _check_rhs(tf, b)
     if b.device.type == "cpu":
         return band_tri_solve_plain(tf, b)
     x = _band_tri(tf, b, _launch_scan)
-    LAUNCHES += 1
+    count("band_tri")
     return x
 
 
@@ -284,7 +282,7 @@ def band_tri_solve_on(path: str, tf: ReducedScanTriFactor,
     """B4 with its scan on the named layout ("grid" or "cluster"): a
     measurement, never a solve's path; counts no launch."""
     def scan(m, c, y, r, alpha):
-        _scan_call(path, _ON[path][0], m, c, y, r, alpha)
+        _scan_call(path, _ON[path][0], m, c, y, r, alpha, counted=False)
     _check_rhs(tf, b)
     return _band_tri(tf, b, scan)
 
@@ -298,7 +296,7 @@ def _check_rhs(tf: ReducedScanTriFactor, b: torch.Tensor) -> None:
 def _band_tri(tf: ReducedScanTriFactor, b: torch.Tensor, scan
               ) -> torch.Tensor:
     """B4 on the card: the c kernel, then ``scan`` in place in x."""
-    _check_cuda("band_tri_solve", b, _C_ENTRY, inv_diag=tf.inv_diag,
+    _check_cuda("band_tri_solve", b, inv_diag=tf.inv_diag,
                 w_blocks=tf.w_blocks)
     p, r, nb = tf.panel, tf.r, tf.nblocks
     if not (1 <= r <= p <= MAX_PANEL):
@@ -314,11 +312,8 @@ def _band_tri(tf: ReducedScanTriFactor, b: torch.Tensor, scan
     # x padded to whole panels: c = inv b lands in it, then the scan turns
     # each panel's c_i into x_i in place; the padding is sliced off
     x = torch.empty(nb * p, dtype=b.dtype, device=b.device)
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    status = getattr(_build.kernel_library(), _C_ENTRY[b.dtype])(
-        tf.inv_diag.data_ptr(), b.data_ptr(), x.data_ptr(), tf.n, p, nb,
-        stream)
-    _build.check(status, "band_tri_solve (c = inv b)")
+    _BAND_C.launch(b, tf.inv_diag.data_ptr(), b.data_ptr(), x.data_ptr(),
+                   tf.n, p, nb)
     xt = x.view(nb, p).T                                    # (p, nb)
     scan(tf.w_blocks.permute(1, 2, 0), xt, xt, r, -1.0)
     return x[: tf.n]

@@ -39,11 +39,7 @@ import numpy as np
 import torch
 
 from ..utils.device import upload
-from ..utils.profiling import BUILD_SCAN_PACK_SPAN, span
-
-# Path counter (``utils/profiling.py::path_counts``): host microseconds
-# spent in ``pack_reduced_scan_np``.
-SCAN_PACK_US = 0
+from ..utils.profiling import BUILD_SCAN_PACK_SPAN, count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,12 +190,12 @@ def pack_reduced_scan_np(T, panel: int = 128, r: int | None = None,
     the JAX package, the same numbers): numpy ``(inv (nb, p, p), w (nb, p,
     r), n, panel, r)``, or None when the reach exceeds ``panel``.  Linear in
     nnz plus O(nb p^3) batched LAPACK/BLAS work; inside the span
-    ``cpkrylov.build.scan_pack``, its host time added to ``SCAN_PACK_US``."""
-    global SCAN_PACK_US
+    ``cpkrylov.build.scan_pack``, its host microseconds counted in
+    ``scan_pack_us`` (``utils/profiling.py``)."""
     t0 = time.perf_counter()
     with span(BUILD_SCAN_PACK_SPAN):
         out = _pack_reduced_scan(T, panel, r, dtype)
-    SCAN_PACK_US += int(round(1e6 * (time.perf_counter() - t0)))
+    count("scan_pack_us", int(round(1e6 * (time.perf_counter() - t0))))
     return out
 
 

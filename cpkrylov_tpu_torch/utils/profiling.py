@@ -17,24 +17,30 @@ direct solves and K_P products, SURVEY.md section 3.2), and
 warm repeats) and reports iterations/s and work-model nnz/s.  The work
 model counts entries, not bytes: it implies no bandwidth.
 
-:func:`launch_counts` reads the ``LAUNCHES`` counters of the hand-written
-kernels B1-B10 (each wrapper adds one where it launches its kernel, and
-nowhere else), so a run can show which kernels carried it;
-:func:`path_counts` reads the counters of the paths a solve took
-(``PATH_COUNTERS``: ``mixed_device_loops``, the unforced device loops of
-``mixed.solve_mixed`` that reached ``dispatch()``; ``mixed_fallbacks``,
-those of them that did not converge and sent the solve to the host loop;
-``dia_card_packs``, the DIA placements of ``ops/dia.py::place_dia`` made
-on a CUDA device; ``dia_gate_refusals``, the CUDA-device attempts whose
-padded diagonals failed the caller's gate, which then keeps CSR;
-``tri_reduced_scan_builds``, ``tri_block_builds`` and
-``tri_bidiag_builds``, the triangles that ``precond/cp.py::_build_tri`` and
-``_build_tri_upper`` built in each form, on any device;
-``scan_pack_us``, the host microseconds spent in
-``precond/trisolve.py::pack_reduced_scan_np``; and ``scan_grid_launches``
-and ``scan_cluster_launches``, the B6 scans of ``precond/cuda_tri.py`` on
-the persistent grid and on one cluster).  :func:`reset_launches`
-sets both kinds of counter to 0.
+Counters.  Every counter of the port lives in ``COUNTS``, this module's
+registry, and grows only through :func:`count`.  The kernel counters
+(``KERNELS``) hold the launches of the hand-written kernels B1-B10: each
+wrapper declares its entries with the keys they add to
+(``_build.Entry``), so a run can show which kernels carried it.  The path
+counters (``PATHS``) hold the paths a solve took:
+
+* ``mixed_device_loops``: the unforced device loops of
+  ``mixed.solve_mixed`` that reached ``dispatch()``; ``mixed_fallbacks``,
+  those of them that did not converge and sent the solve to the host loop;
+* ``dia_card_packs``: the DIA placements of ``ops/dia.py::place_dia`` made
+  on a CUDA device; ``dia_gate_refusals``, the CUDA-device attempts whose
+  padded diagonals failed the caller's gate, which then keeps CSR;
+* ``tri_reduced_scan_builds``, ``tri_block_builds``,
+  ``tri_bidiag_builds``: the triangles that ``precond/cp.py::_build_tri``
+  and ``_build_tri_upper`` built in each form, on any device;
+* ``scan_pack_us``: the host microseconds spent in
+  ``precond/trisolve.py::pack_reduced_scan_np``;
+* ``scan_grid_launches``, ``scan_cluster_launches``: the B6 scans of
+  ``precond/cuda_tri.py`` on the persistent grid and on one cluster.
+
+:func:`launch_counts` and :func:`path_counts` read the two kinds;
+:func:`reset_launches` sets every counter to 0.  A new counter is its name
+in ``KERNELS`` or ``PATHS`` and the line that counts.
 
 Spans.  Every span of the port is a ``torch.profiler.record_function``
 span opened through :func:`span`, which costs one check of the profiler's
@@ -70,10 +76,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import importlib
 import json
 import os
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -96,38 +102,16 @@ MIXED_HOST_LOOP_SPAN = "cpkrylov.mixed.host_loop"  # the host outer loop
 APPLY_SPAN = "cpkrylov.apply"             # CPPrecond.apply
 HOST_READ_SPAN = "cpkrylov.host_read"     # one device-to-host read
 
-# kernel name -> (wrapper module, its counter): B1-B10
-KERNEL_COUNTERS = {
-    "dia_spmv": ("cpkrylov_tpu_torch.ops.cuda_dia", "LAUNCHES"),
-    "bidiag_scan": ("cpkrylov_tpu_torch.precond.cuda_bidiag", "LAUNCHES"),
-    "df_dia_spmv": ("cpkrylov_tpu_torch.ops.cuda_df_dia", "LAUNCHES"),
-    "band_tri": ("cpkrylov_tpu_torch.precond.cuda_tri", "LAUNCHES"),
-    "csr_spmv": ("cpkrylov_tpu_torch.ops.cuda_spmv", "LAUNCHES"),
-    "affine_scan": ("cpkrylov_tpu_torch.precond.cuda_tri", "SCAN_LAUNCHES"),
-    "interleave": ("cpkrylov_tpu_torch.precond.cuda_interleave", "LAUNCHES"),
-    "uninterleave": ("cpkrylov_tpu_torch.precond.cuda_interleave",
-                     "INV_LAUNCHES"),
-    "block_tri": ("cpkrylov_tpu_torch.precond.cuda_block_tri", "LAUNCHES"),
-    "df_tri_matvec": ("cpkrylov_tpu_torch.precond.cuda_df_tri", "LAUNCHES"),
-}
-
-# counter name -> (module, its counter): the paths a solve took
-PATH_COUNTERS = {
-    "mixed_device_loops": ("cpkrylov_tpu_torch.mixed", "DEVICE_LOOPS"),
-    "mixed_fallbacks": ("cpkrylov_tpu_torch.mixed", "FALLBACKS"),
-    "dia_card_packs": ("cpkrylov_tpu_torch.ops.dia", "CARD_PACKS"),
-    "dia_gate_refusals": ("cpkrylov_tpu_torch.ops.dia", "GATE_REFUSALS"),
-    "tri_reduced_scan_builds": ("cpkrylov_tpu_torch.precond.cp",
-                                "TRI_REDUCED_SCAN_BUILDS"),
-    "tri_block_builds": ("cpkrylov_tpu_torch.precond.cp", "TRI_BLOCK_BUILDS"),
-    "tri_bidiag_builds": ("cpkrylov_tpu_torch.precond.cp",
-                          "TRI_BIDIAG_BUILDS"),
-    "scan_pack_us": ("cpkrylov_tpu_torch.precond.trisolve", "SCAN_PACK_US"),
-    "scan_grid_launches": ("cpkrylov_tpu_torch.precond.cuda_tri",
-                           "SCAN_GRID_LAUNCHES"),
-    "scan_cluster_launches": ("cpkrylov_tpu_torch.precond.cuda_tri",
-                              "SCAN_CLUSTER_LAUNCHES"),
-}
+# the counter registry: the kernels' launches (B1-B10), then the paths
+KERNELS = ("dia_spmv", "bidiag_scan", "df_dia_spmv", "band_tri", "csr_spmv",
+           "affine_scan", "interleave", "uninterleave", "block_tri",
+           "df_tri_matvec")
+PATHS = ("mixed_device_loops", "mixed_fallbacks", "dia_card_packs",
+         "dia_gate_refusals", "tri_reduced_scan_builds", "tri_block_builds",
+         "tri_bidiag_builds", "scan_pack_us", "scan_grid_launches",
+         "scan_cluster_launches")
+COUNTS = dict.fromkeys(KERNELS + PATHS, 0)
+_COUNTS_LOCK = threading.Lock()
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -161,25 +145,27 @@ def span(name: str):
     return _NO_SPAN
 
 
-def _read(counters: dict) -> dict:
-    return {name: getattr(importlib.import_module(mod), attr)
-            for name, (mod, attr) in counters.items()}
+def count(key: str, k: int = 1) -> None:
+    """Add ``k`` to the registry's counter ``key``."""
+    with _COUNTS_LOCK:
+        COUNTS[key] += k
 
 
 def launch_counts() -> dict:
-    """Each kernel's launches since its counter was last reset."""
-    return _read(KERNEL_COUNTERS)
+    """Each kernel's launches since the counters were last reset."""
+    return {key: COUNTS[key] for key in KERNELS}
 
 
 def path_counts() -> dict:
-    """Each path counter (``PATH_COUNTERS``) since it was last reset."""
-    return _read(PATH_COUNTERS)
+    """Each path counter since the counters were last reset."""
+    return {key: COUNTS[key] for key in PATHS}
 
 
 def reset_launches() -> None:
     """Set every kernel's launch counter and every path counter to 0."""
-    for mod, attr in (*KERNEL_COUNTERS.values(), *PATH_COUNTERS.values()):
-        setattr(importlib.import_module(mod), attr, 0)
+    with _COUNTS_LOCK:
+        for key in COUNTS:
+            COUNTS[key] = 0
 
 
 def union_ms(intervals, lo: float, hi: float) -> float:

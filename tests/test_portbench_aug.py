@@ -19,9 +19,9 @@ import scipy.sparse.linalg as spla
 import torch
 
 import cpkrylov_tpu_torch as cpt
-from cpkrylov_tpu_torch.precond import cuda_tri
 from cpkrylov_tpu_torch.precond.trisolve import ReducedScanTriFactor
 from cpkrylov_tpu_torch.utils.mm import aug_kkt
+from cpkrylov_tpu_torch.utils.profiling import launch_counts
 from portbench import harness
 from portbench.gen import aug
 from portbench.reference.kkt_schur import KKTSchur, rel_err
@@ -145,11 +145,12 @@ def _check_solve_and_apply(grid, device):
     exact_p = KKTSchur(s.G, s.B, s.C, device=device)
     for i in range(2):
         sysm, b = cell.system(i)
-        launches = cuda_tri.LAUNCHES
+        launches = launch_counts()["band_tri"]
         out = call(sysm, b)
         assert out.solved
         if device != "cpu":
-            assert cuda_tri.LAUNCHES - launches >= 2 * out.niters
+            assert (launch_counts()["band_tri"] - launches
+                    >= 2 * out.niters)
         x_ref = ref.solve(b).x
         tol = _contract_tol(s, b, x_ref, cell.atol, cell.rtol)
         err = rel_err(out.x.detach().cpu().double().numpy(), x_ref)

@@ -56,6 +56,7 @@ from cpkrylov_tpu_torch.precond.trisolve import (ReducedScanTriFactor,
                                                  pack_reduced_scan_np,
                                                  tri_solve)
 from cpkrylov_tpu_torch.utils.convert import reduced_scan_from
+from cpkrylov_tpu_torch.utils.profiling import launch_counts
 
 torch.set_num_threads(1)
 
@@ -206,10 +207,10 @@ def test_cpu_dispatch_counts_no_launch_and_checks_length():
     T = _banded_lower(600, 4, seed=7)
     tf = build_reduced_scan_tri(T, torch.float64, "cpu", panel=8)
     b = torch.as_tensor(np.random.default_rng(8).standard_normal(600))
-    before = (cuda_tri.LAUNCHES, cuda_tri.SCAN_LAUNCHES)
+    before = launch_counts()
     np.testing.assert_array_equal(tri_solve(tf, b).numpy(),
                                   band_tri_solve_plain(tf, b).numpy())
-    assert (cuda_tri.LAUNCHES, cuda_tri.SCAN_LAUNCHES) == before
+    assert launch_counts() == before
     with pytest.raises(ValueError, match="rhs has shape"):
         band_tri_solve(tf, b[:-1])
     assert build_reduced_scan_tri(T, torch.float64, "cpu", panel=3) is None

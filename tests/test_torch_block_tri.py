@@ -42,13 +42,13 @@ import cpkrylov_tpu as cpk
 import jax.numpy as jnp
 from cpkrylov_tpu.precond import trisolve as jtri
 from cpkrylov_tpu_torch import make_preconditioner
-from cpkrylov_tpu_torch.precond import cuda_block_tri
 from cpkrylov_tpu_torch.precond.cp import factorize_kp
 from cpkrylov_tpu_torch.precond.cuda_block_tri import (
     block_tri, block_tri_solve_lanes, block_tri_solve_plain)
 from cpkrylov_tpu_torch.precond.trisolve import (BlockTriFactor,
                                                  build_block_tri, tri_solve)
 from cpkrylov_tpu_torch.utils.fixtures import load_fixture
+from cpkrylov_tpu_torch.utils.profiling import launch_counts
 
 torch.set_num_threads(1)
 
@@ -185,11 +185,11 @@ def test_cpu_dispatch_runs_the_plain_version_and_no_kernel(dtype):
     tf = build_block_tri(T, dtype, "cpu", panel=panel)
     b = torch.as_tensor(np.random.default_rng(1).standard_normal(500)).to(
         dtype)
-    before = cuda_block_tri.LAUNCHES
+    before = launch_counts()
     x = block_tri(tf, b)
     assert torch.equal(x, block_tri_solve_plain(tf, b))
     assert torch.equal(tri_solve(tf, b), x)
-    assert cuda_block_tri.LAUNCHES == before
+    assert launch_counts() == before
     with pytest.raises(ValueError, match="rhs has shape"):
         block_tri(tf, b[:-1])
 

@@ -45,7 +45,6 @@ import torch
 
 from cpkrylov_tpu.ops import df64 as jdf64
 from cpkrylov_tpu.precond import df_factor as jdf
-from cpkrylov_tpu_torch.precond import cuda_df_tri
 from cpkrylov_tpu_torch.precond.cp import assemble_kp, factorize_kp
 from cpkrylov_tpu_torch.precond.cuda_df_tri import (df_tri_matvec,
                                                     df_tri_matvec_plain,
@@ -53,6 +52,7 @@ from cpkrylov_tpu_torch.precond.cuda_df_tri import (df_tri_matvec,
 from cpkrylov_tpu_torch.precond.df_factor import DFTriMat, _pack_df_tri
 from cpkrylov_tpu_torch.utils.convert import df_factor_from_host
 from cpkrylov_tpu_torch.utils.fixtures import load_fixture
+from cpkrylov_tpu_torch.utils.profiling import launch_counts
 
 torch.set_num_threads(1)
 
@@ -210,9 +210,9 @@ def test_df_direct_solve_matches_jax_at_two_refinement_steps():
     ref = jbdf(jax_bfa(fac, N, 256, np.float32, scan_ok=False,
                        fold_dinv=False), fac, N, nref=2)
     z = np.random.default_rng(5).standard_normal(N).astype(np.float32)
-    before = cuda_df_tri.LAUNCHES
+    before = launch_counts()
     y = ours.solve(torch.as_tensor(z)).numpy()
-    assert cuda_df_tri.LAUNCHES == before
+    assert launch_counts() == before
     yj = np.asarray(ref.solve(jnp.asarray(z)))
     assert np.linalg.norm(y - yj) / np.linalg.norm(yj) <= 1e-9
 
@@ -220,13 +220,13 @@ def test_df_direct_solve_matches_jax_at_two_refinement_steps():
 def test_cpu_dispatch_runs_the_plain_version_and_no_kernel():
     pt = _pack_df_tri(_matrix("random"), "cpu")
     xh, xl = (torch.as_tensor(v) for v in _x(pt.n))
-    before = cuda_df_tri.LAUNCHES
+    before = launch_counts()
     yh, yl = df_tri_matvec(pt, (xh, xl))
     ph, pl = df_tri_matvec_plain(pt, (xh, xl))
     assert torch.equal(yh, ph) and torch.equal(yl, pl)
     mh, ml = pt.matvec_df((xh, xl))
     assert torch.equal(mh, ph) and torch.equal(ml, pl)
-    assert cuda_df_tri.LAUNCHES == before
+    assert launch_counts() == before
     with pytest.raises(ValueError, match="x has shape"):
         df_tri_matvec(pt, (xh[:-1], xl[:-1]))
 

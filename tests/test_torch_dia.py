@@ -25,6 +25,8 @@ from cpkrylov_tpu_torch.ops import dia as tdia
 from cpkrylov_tpu_torch.ops.dia import dia_matvec, dia_rmatvec, pack_dia
 from cpkrylov_tpu_torch.utils import fixtures
 from cpkrylov_tpu_torch.utils.convert import dia_from_numpy
+from cpkrylov_tpu_torch.utils.profiling import (COUNTS, launch_counts,
+                                                path_counts)
 
 torch.set_num_threads(1)
 
@@ -89,12 +91,12 @@ def test_dia_matvec_matches_jax(case, dtype):
     assert _rel(y.numpy(), y_ref) <= TOL[dtype]
     # the CPU tensor goes to the plain version through the wrapper and the
     # dispatcher, and launches nothing
-    before = cuda_dia.LAUNCHES
+    before = launch_counts()
     np.testing.assert_array_equal(
         cuda_dia.dia_spmv(td, torch.as_tensor(x)).numpy(), y.numpy())
     np.testing.assert_array_equal(
         spmv.matvec(td, torch.as_tensor(x)).numpy(), y.numpy())
-    assert cuda_dia.LAUNCHES == before
+    assert launch_counts() == before
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -224,11 +226,12 @@ def test_upload_keeps_a_canonical_csr_and_its_index_dtype():
 
 
 def test_cpu_placements_count_nothing(monkeypatch):
-    monkeypatch.setattr(tdia, "CARD_PACKS", 0)
-    monkeypatch.setattr(tdia, "GATE_REFUSALS", 0)
+    monkeypatch.setitem(COUNTS, "dia_card_packs", 0)
+    monkeypatch.setitem(COUNTS, "dia_gate_refusals", 0)
     pack_dia(GATE_CASES["at_gate"][0], torch.float64, "cpu")
     pack_dia(GATE_CASES["past_gate"][0], torch.float64, "cpu")
-    assert tdia.CARD_PACKS == tdia.GATE_REFUSALS == 0
+    assert path_counts()["dia_card_packs"] == 0
+    assert path_counts()["dia_gate_refusals"] == 0
 
 
 def test_solve_sees_inplace_updates():

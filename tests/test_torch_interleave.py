@@ -18,6 +18,7 @@ from cpkrylov_tpu.precond.pallas_interleave import (interleave_head,
                                                     uninterleave_head)
 from cpkrylov_tpu_torch.precond import cuda_interleave as ci
 from cpkrylov_tpu_torch.precond.permute import InterleavePermute
+from cpkrylov_tpu_torch.utils.profiling import launch_counts
 
 # (n, m, c, G): G is the Pallas kernel's group block (m % G != 0 is ragged)
 CASES = [(80, 20, 4, 8),            # empty tail, ragged
@@ -72,10 +73,10 @@ def test_port_permute_equals_jax_permute(n, m, c, G, dtype):
 def test_cpu_tensors_take_the_plain_version_without_counting():
     n, m, c = 100, 20, 4
     z = torch.as_tensor(_z(n, m, np.float64, seed=1))
-    before = (ci.LAUNCHES, ci.INV_LAUNCHES)
+    before = launch_counts()
     w = ci.interleave(z, n, m, c)
     back = ci.uninterleave(w, n, m, c)
-    assert (ci.LAUNCHES, ci.INV_LAUNCHES) == before
+    assert launch_counts() == before
     assert torch.equal(w, ci.interleave_plain(z, n, m, c))
     assert torch.equal(back, z)
 

@@ -49,6 +49,13 @@ DIA_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
 SCAN_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
+def _launches(kernel: str) -> int:
+    """``kernel``'s launches in the counter registry."""
+    from cpkrylov_tpu_torch.utils.profiling import launch_counts
+
+    return launch_counts()[kernel]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -79,9 +86,9 @@ def test_dia_kernel_matches_plain(cuda, dtype):
         assert d is not None, name
         x = torch.as_tensor(rng.standard_normal(mat.shape[1])).to(
             device=cuda, dtype=dtype)
-        before = cuda_dia.LAUNCHES
+        before = _launches("dia_spmv")
         y = cuda_dia.dia_spmv(d, x)
-        assert cuda_dia.LAUNCHES == before + 1
+        assert _launches("dia_spmv") == before + 1
         ref = dia_matvec(d, x)
         torch.cuda.synchronize()
         err = float(torch.max(torch.abs(y - ref)) / torch.max(torch.abs(ref)))
@@ -104,10 +111,10 @@ def test_bidiag_kernel_matches_scipy(cuda, dtype, reverse, n):
     else:
         T = sp.diags([dd, off], [0, -1], format="csr")
         tf = cuda_bidiag.build_bidiag_tri(T, dtype, cuda)
-    before = cuda_bidiag.LAUNCHES
+    before = _launches("bidiag_scan")
     x = cuda_bidiag.bidiag_tri_solve(
         tf, torch.as_tensor(b).to(device=cuda, dtype=dtype))
-    assert cuda_bidiag.LAUNCHES == before + 1
+    assert _launches("bidiag_scan") == before + 1
     x_ref = spla.spsolve_triangular(T, b, lower=not reverse)
     err = (np.linalg.norm(x.double().cpu().numpy() - x_ref)
            / np.linalg.norm(x_ref))
@@ -143,10 +150,9 @@ def test_bidiag_kernel_equals_plain_bitwise(cuda, dtype, reverse, n):
 
 
 def test_bidiag_tile_is_the_python_constant(cuda):
-    from cpkrylov_tpu_torch import _build
     from cpkrylov_tpu_torch.precond import cuda_bidiag
 
-    assert _build.kernel_library().cpkt_bidiag_tile() == cuda_bidiag.TILE
+    assert cuda_bidiag._TILE() == cuda_bidiag.TILE
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -294,15 +300,15 @@ def test_banded_main_path_goes_through_kernels(cuda):
     from cpkrylov_tpu_torch.utils import fixtures
 
     s = fixtures.banded_saddle_system(20_000, 5_000)
-    dia0, scan0 = cuda_dia.LAUNCHES, cuda_bidiag.LAUNCHES
+    dia0, scan0 = _launches("dia_spmv"), _launches("bidiag_scan")
     out = cpt.solve("cpminres", s.b, s.A, s.B, s.C, s.G, device=cuda,
                     dtype=torch.float64,
                     opts=cpt.SolverOptions(atol=0.0, rtol=1e-6, itmax=200),
                     precond_opts=cpt.PrecondOptions(
                         residual_update=True, nitref=1, force_itref=True))
     assert out.solved
-    assert cuda_dia.LAUNCHES - dia0 >= 4 * out.niters
-    assert cuda_bidiag.LAUNCHES - scan0 >= 4 * out.niters
+    assert _launches("dia_spmv") - dia0 >= 4 * out.niters
+    assert _launches("bidiag_scan") - scan0 >= 4 * out.niters
     r = s.K @ out.x.cpu().numpy() - s.b
     assert np.linalg.norm(r) <= 1e-6 * np.linalg.norm(s.b)
 
@@ -355,9 +361,9 @@ def test_df_dia_kernel_matches_plain_bitwise(cuda):
         assert d is not None, name
         x = rng.standard_normal(mat.shape[1]) * 1e3
         xh, xl = (torch.as_tensor(v).to(cuda) for v in df_from_f64(x))
-        before = cuda_df_dia.LAUNCHES
+        before = _launches("df_dia_spmv")
         yh, yl = cuda_df_dia.df_dia_spmv(d, xh, xl)
-        assert cuda_df_dia.LAUNCHES == before + 1
+        assert _launches("df_dia_spmv") == before + 1
         ph, pl = df_dia_matvec(d, (xh, xl))
         torch.cuda.synchronize()
         assert torch.equal(yh, ph) and torch.equal(yl, pl), name
@@ -396,15 +402,16 @@ def test_mixed_device_loop_goes_through_kernels(cuda):
     s = fixtures.banded_saddle_system(20_000, 5_000)
     M = cpt.make_preconditioner(s.G, s.B, s.C, dtype=torch.float32,
                                 device=cuda)
-    c0 = (cuda_df_dia.LAUNCHES, cuda_dia.LAUNCHES, cuda_bidiag.LAUNCHES)
+    c0 = (_launches("df_dia_spmv"), _launches("dia_spmv"),
+          _launches("bidiag_scan"))
     out = cpt.solve_mixed(
         "cpminres", s.b, s.A, s.B, s.C, s.G, M=M, device=cuda,
         device_resident=True, inner_stagwin=25,
         opts=cpt.SolverOptions(atol=0.0, rtol=1e-8, itmax=200, stagwin=25))
     assert out.solved and out.inner_outputs == ()
-    assert cuda_df_dia.LAUNCHES - c0[0] >= 3 * out.nouter
-    assert cuda_dia.LAUNCHES - c0[1] >= out.niters
-    assert cuda_bidiag.LAUNCHES - c0[2] >= 2 * out.niters
+    assert _launches("df_dia_spmv") - c0[0] >= 3 * out.nouter
+    assert _launches("dia_spmv") - c0[1] >= out.niters
+    assert _launches("bidiag_scan") - c0[2] >= 2 * out.niters
     r = s.K @ out.x - s.b
     assert np.linalg.norm(r) <= 1e-8 * np.linalg.norm(s.b)
 
@@ -454,9 +461,9 @@ def test_band_tri_kernel_matches_plain_and_scipy(cuda, dtype, n, reach,
     assert tf is not None and tf.r == reach
     b64 = np.random.default_rng(n).standard_normal(n)
     b = torch.as_tensor(b64).to(device=cuda, dtype=dtype)
-    before = (cuda_tri.LAUNCHES, cuda_tri.SCAN_LAUNCHES)
+    before = (_launches("band_tri"), _launches("affine_scan"))
     x = cuda_tri.band_tri_solve(tf, b)
-    assert (cuda_tri.LAUNCHES, cuda_tri.SCAN_LAUNCHES) == (before[0] + 1,
+    assert (_launches("band_tri"), _launches("affine_scan")) == (before[0] + 1,
                                                            before[1] + 1)
     xp = cuda_tri.band_tri_solve_plain(tf, b)
     torch.cuda.synchronize()
@@ -478,9 +485,9 @@ def test_affine_scan_kernel_matches_plain(cuda, dtype, r, nb):
     ref = cuda_tri.affine_scan_plain(mr, cr)
     # the lane-major tensor and a step-major one viewed as (r, r, nb)
     for m in (mr, mr.permute(2, 0, 1).contiguous().permute(1, 2, 0)):
-        before = cuda_tri.SCAN_LAUNCHES
+        before = _launches("affine_scan")
         s = cuda_tri.affine_scan(m, cr)
-        assert cuda_tri.SCAN_LAUNCHES == before + 1
+        assert _launches("affine_scan") == before + 1
         torch.cuda.synchronize()
         assert s.shape == (r, nb)
         assert _rel2(s, ref) <= BAND_TOL[dtype]
@@ -498,10 +505,10 @@ def test_scan_read_floor_reads_the_scan_slices(cuda, dtype):
         device=cuda, dtype=dtype).permute(1, 2, 0)
     c = torch.as_tensor(rng.standard_normal((q, nb))).to(device=cuda,
                                                           dtype=dtype)
-    before = cuda_tri.SCAN_LAUNCHES
+    before = _launches("affine_scan")
     y = cuda_tri.scan_read_floor(m, c, r)
     torch.cuda.synchronize()
-    assert cuda_tri.SCAN_LAUNCHES == before
+    assert _launches("affine_scan") == before
     assert torch.equal(y, c)
 
 
@@ -600,7 +607,7 @@ def test_grid_scan_gives_the_cluster_scans_bits(cuda, dtype, n, reach,
 def test_scan_path_counters_count_each_layout(cuda, monkeypatch, n, reach,
                                               panel, blocks, path):
     """A B4 solve adds one to the counter of the layout its shape takes,
-    and none to the other; SCAN_LAUNCHES counts it either way."""
+    and none to the other; ``affine_scan`` counts it either way."""
     from cpkrylov_tpu_torch.precond import cuda_tri
     from cpkrylov_tpu_torch.precond.trisolve import build_reduced_scan_tri
     from cpkrylov_tpu_torch.utils import profiling
@@ -612,14 +619,14 @@ def test_scan_path_counters_count_each_layout(cuda, monkeypatch, n, reach,
     if blocks is not None:
         monkeypatch.setattr(cuda_tri, "resident_blocks", lambda _: blocks)
     before = profiling.path_counts()
-    scans = cuda_tri.SCAN_LAUNCHES
+    scans = _launches("affine_scan")
     x = cuda_tri.band_tri_solve(tf, b)
     after = profiling.path_counts()
     grid = after["scan_grid_launches"] - before["scan_grid_launches"]
     cluster = (after["scan_cluster_launches"]
                - before["scan_cluster_launches"])
     assert (grid, cluster) == ((1, 0) if path == "grid" else (0, 1))
-    assert cuda_tri.SCAN_LAUNCHES == scans + 1
+    assert _launches("affine_scan") == scans + 1
     x_ref = spla.spsolve_triangular(T, b64, lower=True)
     assert _rel2(x, x_ref) <= BAND_TOL[torch.float64]
 
@@ -666,10 +673,10 @@ def test_csr_kernel_matches_plain_bitwise(cuda, dtype):
             device=cuda, dtype=dtype)
         v = torch.as_tensor(rng.standard_normal(mat.shape[0])).to(
             device=cuda, dtype=dtype)
-        before = cuda_spmv.LAUNCHES
+        before = _launches("csr_spmv")
         y = cuda_spmv.csr_spmv(c, x)
         z = cuda_spmv.csr_rmatvec(c, v)
-        assert cuda_spmv.LAUNCHES == before + 2
+        assert _launches("csr_spmv") == before + 2
         yp = cuda_spmv.csr_matvec_plain(c, x)
         zp = cuda_spmv.csr_matvec_plain(c.t, v)
         torch.cuda.synchronize()
@@ -748,10 +755,11 @@ def test_interleave_kernels_match_plain_bitwise(cuda, dtype, n, m, c):
 
     z = torch.as_tensor(np.random.default_rng(n + c).standard_normal(
         n + m)).to(device=cuda, dtype=dtype)
-    before = (ci.LAUNCHES, ci.INV_LAUNCHES)
+    before = (_launches("interleave"), _launches("uninterleave"))
     w = ci.interleave(z, n, m, c)
     back = ci.uninterleave(w, n, m, c)
-    assert (ci.LAUNCHES, ci.INV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (_launches("interleave"), _launches("uninterleave")) == (
+        before[0] + 1, before[1] + 1)
     torch.cuda.synchronize()
     assert torch.equal(w, ci.interleave_plain(z, n, m, c))
     assert torch.equal(back, ci.uninterleave_plain(w, n, m, c))
@@ -848,10 +856,10 @@ def test_block_tri_kernel_matches_plain_and_scipy(cuda, dtype):
         tf = build_block_tri(T, dtype, cuda)
         b64 = rng.standard_normal(T.shape[0])
         b = torch.as_tensor(b64).to(device=cuda, dtype=dtype)
-        before = cuda_block_tri.LAUNCHES
+        before = _launches("block_tri")
         x = cuda_block_tri.block_tri(tf, b)
         x2 = cuda_block_tri.block_tri(tf, b)
-        assert cuda_block_tri.LAUNCHES == before + 2
+        assert _launches("block_tri") == before + 2
         xp = block_tri_solve_plain(tf, b)
         torch.cuda.synchronize()
         assert x.dtype == dtype and torch.equal(x, x2), label
@@ -912,10 +920,10 @@ def test_block_tri_kernel_takes_panels_above_1024(cuda, panel, dtype):
         tf = build_block_tri(T, dtype, cuda, panel=panel)
         b64 = rng.standard_normal(T.shape[0]).astype(np.float32)
         b = torch.as_tensor(b64).to(device=cuda, dtype=dtype)
-        before = cuda_block_tri.LAUNCHES
+        before = _launches("block_tri")
         x = cuda_block_tri.block_tri(tf, b)
         x2 = cuda_block_tri.block_tri(tf, b)
-        assert cuda_block_tri.LAUNCHES == before + 2
+        assert _launches("block_tri") == before + 2
         xp = block_tri_solve_plain(tf, b)
         torch.cuda.synchronize()
         assert torch.equal(x, x2), label
@@ -994,10 +1002,10 @@ def test_df_tri_kernel_equals_plain_bitwise(cuda):
         xh = torch.as_tensor(v.astype(np.float32), device=cuda)
         xl = torch.as_tensor((v - v.astype(np.float32)).astype(np.float32),
                              device=cuda)
-        before = cuda_df_tri.LAUNCHES
+        before = _launches("df_tri_matvec")
         yh, yl = cuda_df_tri.df_tri_matvec(t, (xh, xl))
         yh2, yl2 = cuda_df_tri.df_tri_matvec(t, (xh, xl))
-        assert cuda_df_tri.LAUNCHES == before + 2
+        assert _launches("df_tri_matvec") == before + 2
         ph, pl = df_tri_matvec_plain(t, (xh, xl))
         torch.cuda.synchronize()
         assert torch.equal(yh, ph) and torch.equal(yl, pl)

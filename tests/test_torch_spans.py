@@ -18,8 +18,6 @@ import torch
 
 import cpkrylov_tpu_torch as cpt
 from cpkrylov_tpu_torch import mixed
-from cpkrylov_tpu_torch.ops import dia as tdia
-from cpkrylov_tpu_torch.precond import cuda_tri, trisolve
 from cpkrylov_tpu_torch.precond.cp import factorize_kp
 from cpkrylov_tpu_torch.utils import device as devutil
 from cpkrylov_tpu_torch.utils import profiling as prof
@@ -416,14 +414,22 @@ def test_the_span_metrics_split_the_remainder():
     assert len(reads) >= run.traced[0].niters
 
 
+def _only(monkeypatch, keep):
+    """Make ``path_counts()`` report only the counters that ``keep``
+    accepts: a program with fewer counters."""
+    counts = prof.path_counts
+    monkeypatch.setattr(prof, "path_counts", lambda: {
+        k: v for k, v in counts().items() if keep(k)})
+
+
 def test_the_fallback_share_reads_the_counters(monkeypatch):
     _, run = _tiny_run("banded_1m.rhs_stream")
     read = harness.metric_reader("mixed.fallback_share")
-    monkeypatch.setattr(mixed, "DEVICE_LOOPS", 0)
-    monkeypatch.setattr(mixed, "FALLBACKS", 0)
+    monkeypatch.setitem(prof.COUNTS, "mixed_device_loops", 0)
+    monkeypatch.setitem(prof.COUNTS, "mixed_fallbacks", 0)
     assert read(run) is None
-    monkeypatch.setattr(mixed, "DEVICE_LOOPS", 8)
-    monkeypatch.setattr(mixed, "FALLBACKS", 2)
+    monkeypatch.setitem(prof.COUNTS, "mixed_device_loops", 8)
+    monkeypatch.setitem(prof.COUNTS, "mixed_fallbacks", 2)
     assert read(run) == pytest.approx(25.0)
     monkeypatch.delattr(prof, "path_counts")
     assert read(run) is None
@@ -432,18 +438,16 @@ def test_the_fallback_share_reads_the_counters(monkeypatch):
 def test_the_card_pack_share_reads_the_counters(monkeypatch):
     _, run = _tiny_run("banded_1m.rhs_stream")
     read = harness.metric_reader("driver.dia_card_pack_share")
-    monkeypatch.setattr(tdia, "CARD_PACKS", 0)
-    monkeypatch.setattr(tdia, "GATE_REFUSALS", 0)
+    monkeypatch.setitem(prof.COUNTS, "dia_card_packs", 0)
+    monkeypatch.setitem(prof.COUNTS, "dia_gate_refusals", 0)
     assert read(run) is None
-    monkeypatch.setattr(tdia, "CARD_PACKS", 6)
-    monkeypatch.setattr(tdia, "GATE_REFUSALS", 2)
+    monkeypatch.setitem(prof.COUNTS, "dia_card_packs", 6)
+    monkeypatch.setitem(prof.COUNTS, "dia_gate_refusals", 2)
     assert read(run) == pytest.approx(75.0)
-    monkeypatch.setattr(tdia, "CARD_PACKS", 0)
+    monkeypatch.setitem(prof.COUNTS, "dia_card_packs", 0)
     assert read(run) == 0.0
     # a program with the mixed counters alone, or with none
-    monkeypatch.setitem(prof.__dict__, "PATH_COUNTERS", {
-        k: v for k, v in prof.PATH_COUNTERS.items()
-        if k.startswith("mixed")})
+    _only(monkeypatch, lambda k: k.startswith("mixed"))
     assert read(run) is None
     monkeypatch.delattr(prof, "path_counts")
     assert read(run) is None
@@ -452,19 +456,17 @@ def test_the_card_pack_share_reads_the_counters(monkeypatch):
 def test_the_scan_grid_share_reads_the_counters(monkeypatch):
     _, run = _tiny_run("banded_1m.rhs_stream")
     read = harness.metric_reader("kernel.scan_grid_share")
-    monkeypatch.setattr(cuda_tri, "SCAN_GRID_LAUNCHES", 0)
-    monkeypatch.setattr(cuda_tri, "SCAN_CLUSTER_LAUNCHES", 0)
+    monkeypatch.setitem(prof.COUNTS, "scan_grid_launches", 0)
+    monkeypatch.setitem(prof.COUNTS, "scan_cluster_launches", 0)
     assert read(run) is None
-    monkeypatch.setattr(cuda_tri, "SCAN_GRID_LAUNCHES", 28)
+    monkeypatch.setitem(prof.COUNTS, "scan_grid_launches", 28)
     assert read(run) == pytest.approx(100.0)
-    monkeypatch.setattr(cuda_tri, "SCAN_CLUSTER_LAUNCHES", 4)
+    monkeypatch.setitem(prof.COUNTS, "scan_cluster_launches", 4)
     assert read(run) == pytest.approx(87.5)
-    monkeypatch.setattr(cuda_tri, "SCAN_GRID_LAUNCHES", 0)
+    monkeypatch.setitem(prof.COUNTS, "scan_grid_launches", 0)
     assert read(run) == 0.0
     # a program with the other counters alone, or with none
-    monkeypatch.setitem(prof.__dict__, "PATH_COUNTERS", {
-        k: v for k, v in prof.PATH_COUNTERS.items()
-        if not k.startswith("scan_")})
+    _only(monkeypatch, lambda k: not k.startswith("scan_"))
     assert read(run) is None
     monkeypatch.delattr(prof, "path_counts")
     assert read(run) is None
@@ -473,13 +475,12 @@ def test_the_scan_grid_share_reads_the_counters(monkeypatch):
 def test_the_scan_pack_reader_reads_the_counter(monkeypatch):
     _, run = _tiny_run("banded_1m.rhs_stream")
     read = harness.metric_reader("precond.scan_pack_s")
-    monkeypatch.setattr(trisolve, "SCAN_PACK_US", 0)
+    monkeypatch.setitem(prof.COUNTS, "scan_pack_us", 0)
     assert read(run) is None
-    monkeypatch.setattr(trisolve, "SCAN_PACK_US", 2_500_000)
+    monkeypatch.setitem(prof.COUNTS, "scan_pack_us", 2_500_000)
     assert read(run) == pytest.approx(2.5)
     # a program without the counter, or without any
-    monkeypatch.setitem(prof.__dict__, "PATH_COUNTERS", {
-        k: v for k, v in prof.PATH_COUNTERS.items() if k != "scan_pack_us"})
+    _only(monkeypatch, lambda k: k != "scan_pack_us")
     assert read(run) is None
     monkeypatch.delattr(prof, "path_counts")
     assert read(run) is None

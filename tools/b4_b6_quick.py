@@ -4,7 +4,8 @@ Runs ``chip_smoke.py``'s holds of B6's two layouts without its other
 phases: B6 on each layout at the tests' shapes and at panels of many head
 rows, each y within chip_smoke's ``BAND_TOL`` of the plain sequential scan
 (``scan_plain``, in float64), the grid's y bit for bit against the single
-cluster's and a second grid call, the grid's read floor equal to c; B4 on
+cluster's and a second grid call, the grid's read floor equal to c, none
+of these named-layout calls counted (``utils/profiling.launch_counts``); B4 on
 a synthetic reduced-scan factor at AUG2D-L's shape (p 632, r 631, nb 473),
 f64 and f32, with its scan on each layout (``chip_smoke.hold_scan_paths``:
 x bit for bit, the scans' and read floors' device ms); then the crossover
@@ -77,6 +78,7 @@ def main() -> int:
     import chip_smoke
     from cpkrylov_tpu_torch import _build
     from cpkrylov_tpu_torch.precond import cuda_tri
+    from cpkrylov_tpu_torch.utils.profiling import launch_counts
 
     device = torch.device("cuda", 0)
     print("card " + chip_smoke.nvidia_smi_card(), flush=True)
@@ -90,17 +92,20 @@ def main() -> int:
                              dtype=dtype) * (0.5 / r ** 0.5)).permute(1, 2, 0)
             c = torch.randn((q, nb), generator=gen, device=device,
                             dtype=dtype)
+            counts = launch_counts()
             yg = cuda_tri.scan_on("grid", m, c, r)
             yg2 = cuda_tri.scan_on("grid", m, c, r)
             yc = cuda_tri.scan_on("cluster", m, c, r)
             fl = cuda_tri.scan_read_floor(m, c, r, "grid")
+            uncounted = launch_counts() == counts
             ref = scan_plain(m, c, r)
             tol = chip_smoke.BAND_TOL[str(dtype).split(".")[1]]
             err = {w: float(torch.linalg.vector_norm(y.double() - ref)
                             / torch.linalg.vector_norm(ref))
                    for w, y in (("grid", yg), ("cluster", yc))}
             ok = (torch.equal(yg, yc) and torch.equal(yg, yg2)
-                  and torch.equal(fl, c) and max(err.values()) <= tol)
+                  and torch.equal(fl, c) and max(err.values()) <= tol
+                  and uncounted)
             print(f"b6 {str(dtype).split('.')[1]} q={q} r={r} nb={nb} "
                   f"grid_rel_err_vs_plain={err['grid']:.3e} "
                   f"cluster_rel_err_vs_plain={err['cluster']:.3e} "
@@ -108,6 +113,7 @@ def main() -> int:
                   f"grid_equals_cluster={torch.equal(yg, yc)} "
                   f"grid_repeats={torch.equal(yg, yg2)} "
                   f"grid_floor_is_c={torch.equal(fl, c)} "
+                  f"uncounted={uncounted} "
                   f"layout={cuda_tri.scan_grid_layout(q, r, dtype, blocks)}",
                   flush=True)
             if not ok:

@@ -18,7 +18,9 @@ a canonical CSR (:func:`upload_csr`) and uploads its three arrays, and
 :func:`place_dia` finds the diagonals and places the values with tensor
 operations on their device.  It serves every DIA pack of the port: the f64
 and f32 ``DIA`` here, and the df64 pairs of ``ops/df64.py`` (also of a
-transpose, from the same uploaded arrays).
+transpose, from the same uploaded arrays).  The blocked triangular factor
+(``precond/trisolve.py::build_block_tri``) is placed the same way, from
+:func:`upload_csr` and :func:`csr_rows`.
 """
 from __future__ import annotations
 
@@ -92,6 +94,14 @@ def upload_csr(mat, device) -> CSRArrays:
                      shape=(int(csr.shape[0]), int(csr.shape[1])))
 
 
+def csr_rows(csr: CSRArrays) -> torch.Tensor:
+    """Each stored entry's row, int64, on the arrays' device (no value is
+    read back)."""
+    return torch.repeat_interleave(
+        torch.arange(csr.shape[0], device=csr.data.device),
+        csr.indptr.diff(), output_size=csr.nnz)
+
+
 def place_dia(csr: CSRArrays, max_slots: float,
               forms: Callable[[torch.Tensor], Tuple[torch.Tensor, ...]],
               transpose: bool = False):
@@ -109,9 +119,7 @@ def place_dia(csr: CSRArrays, max_slots: float,
     nrows, ncols = csr.shape[::-1] if transpose else csr.shape
     dev = csr.data.device
     if csr.nnz:
-        rows = torch.repeat_interleave(
-            torch.arange(csr.shape[0], device=dev), csr.indptr.diff(),
-            output_size=csr.nnz)
+        rows = csr_rows(csr)
         cols = csr.indices.long()
         if transpose:
             rows, cols = cols, rows

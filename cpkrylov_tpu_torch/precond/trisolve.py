@@ -7,8 +7,8 @@ scan kernel (``cuda_bidiag.py``); ``precond/cp.py`` chooses between the two
 forms here by the factor's structure.
 
 *Blocked substitution* (``BlockTriFactor``) blocks the factor into
-``panel``-row panels whose dense inverses are computed once on the host; the
-solve is the sequential loop
+``panel``-row panels whose dense inverses are computed once, where the
+factor will live (``build_block_tri``); the solve is the sequential loop
 
     x[blk] = inv_diag[blk] @ (b[blk] - L_off[blk, :] @ x)
 
@@ -38,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from ..ops.dia import csr_rows, upload_csr
 from ..utils.device import upload
 from ..utils.profiling import BUILD_SCAN_PACK_SPAN, count, span
 
@@ -107,48 +108,77 @@ def _coo_canonical(T):
 def build_block_tri(T, dtype: torch.dtype, device,
                     panel: int = 256) -> BlockTriFactor:
     """Prepare a scipy lower-triangular matrix (explicit nonzero diagonal;
-    pass ``L + I`` for unit-diagonal factors).  Vectorized numpy packing."""
-    T, er, ec, ev = _coo_canonical(T)
-    n = T.shape[0]
+    pass ``L + I`` for unit-diagonal factors) on ``device``.
+
+    The host uploads T's canonical CSR (``ops/dia.py::upload_csr``) and
+    reads back one value, the ELL width K with the checks; the panels and
+    the ELL arrays are placed with tensor operations on the device.  A CSR
+    row holds its columns ascending, so a row's entries left of its panel
+    lead it and each takes the ELL slot of its place in the row.  The
+    panels are inverted in f64, then cast to ``dtype``: on a CUDA device by
+    a batched triangular solve against the identity (counted in
+    ``block_card_packs``, ``utils/profiling.py``), on the CPU by LAPACK's
+    ``trtri`` (``_invert_panels_f``)."""
+    csr = upload_csr(T, device)
+    n = csr.shape[0]
     nblocks = max(1, -(-n // panel))
     n_pad = nblocks * panel
-
-    blk = er // panel
-    r_loc = er - blk * panel
-    in_blk = ec >= blk * panel
-
-    # Dense diagonal panels (padding rows solve to identity).
-    diag_f = np.zeros((panel, panel, nblocks), dtype=np.float64, order="F")
-    idx = np.arange(panel)
-    diag_f[idx, idx, :] = 1.0
-    d = in_blk
-    diag_f[r_loc[d], ec[d] - blk[d] * panel, blk[d]] = ev[d]
-    inv_diag = np.ascontiguousarray(_invert_panels_f(diag_f).transpose(2, 0, 1))
-    del diag_f
-
-    # Off-panel entries in ELL layout: position within row via cumcount.
-    o = ~in_blk
-    orow, ocol, oval = er[o], ec[o], ev[o]
-    counts = np.bincount(orow, minlength=n_pad)
-    max_off = max(1, int(counts.max()) if counts.size else 1)
-    order = np.argsort(orow, kind="stable")
-    starts = np.zeros(n_pad + 1, np.int64)
-    np.cumsum(counts, out=starts[1:])
-    pos = np.arange(orow.size) - starts[orow[order]]
     if n_pad >= 1 << 31:
         raise ValueError(f"blocked substitution indexes with int32: n_pad "
                          f"= {n_pad} >= 2**31")
-    off_data = np.zeros((n_pad, max_off), dtype=np.float64)
-    off_cols = np.zeros((n_pad, max_off), dtype=np.int32)
-    off_data[orow[order], pos] = oval[order]
-    off_cols[orow[order], pos] = ocol[order]
+    dev = csr.data.device
+    rows = csr_rows(csr)
+    cols = csr.indices.long()
+    start = rows - rows % panel               # the row's panel's first column
+    off = cols < start
+    inside = ~off & (cols < start + panel)
+    counts = torch.zeros(n_pad, dtype=torch.int32, device=dev).index_add_(
+        0, rows, off.int())
 
+    # Dense diagonal panels, padding rows solving to identity, each stored
+    # transposed (row-major T_ii^T is the Fortran order LAPACK wants).
+    panels = torch.zeros(nblocks * panel * panel + 1, dtype=torch.float64,
+                         device=dev)        # the last slot takes the rest
+    stack = panels[:-1].view(nblocks, panel, panel)
+    stack.diagonal(dim1=1, dim2=2).fill_(1.0)
+    at = torch.where(inside, cols * panel + rows - start, panels.numel() - 1)
+    panels[at] = csr.data
+
+    zero = (stack.diagonal(dim1=1, dim2=2) == 0).any(dim=1)
+    first_zero = torch.where(zero, torch.arange(nblocks, device=dev),
+                             nblocks).min()
+    K, singular, beyond = torch.stack([
+        counts.max().long(), first_zero,
+        (~off & ~inside).any().long()]).tolist()
+    if beyond:
+        raise ValueError("blocked substitution takes a lower-triangular "
+                         "matrix: entries lie right of their diagonal panel")
+    if singular < nblocks:
+        raise ZeroDivisionError(
+            f"singular diagonal panel {singular} (zero pivot)")
+    K = max(1, K)
+
+    if dev.type == "cuda":                  # (T_ii^T)^-1 = (T_ii^-1)^T
+        eye = torch.eye(panel, dtype=torch.float64, device=dev)
+        inv_t = torch.linalg.solve_triangular(
+            stack, eye.expand(nblocks, panel, panel), upper=True)
+        count("block_card_packs")
+    else:
+        inv_t = stack
+        _invert_panels_f(stack.numpy().transpose(2, 1, 0))
+
+    # Off-panel entries in ELL layout, the rest sent to a last slot.
+    slot = torch.where(off, rows * K + torch.arange(csr.nnz, device=dev)
+                       - csr.indptr.long()[rows], n_pad * K)
+    off_data = torch.zeros(n_pad * K + 1, dtype=dtype, device=dev)
+    off_cols = torch.zeros(n_pad * K + 1, dtype=torch.int32, device=dev)
+    off_data[slot] = csr.data.to(dtype)
+    off_cols[slot] = csr.indices.int()
     return BlockTriFactor(
-        inv_diag=upload(inv_diag, device, dtype),
-        off_data=upload(off_data, device, dtype),
-        off_cols=upload(off_cols, device),
-        off_counts=upload(counts.astype(np.int32), device),
-        n=int(n), panel=int(panel))
+        inv_diag=inv_t.transpose(1, 2).to(dtype).contiguous(),
+        off_data=off_data[:-1].view(n_pad, K),
+        off_cols=off_cols[:-1].view(n_pad, K),
+        off_counts=counts, n=int(n), panel=int(panel))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,6 +33,8 @@ counters (``PATHS``) hold the paths a solve took:
 * ``tri_reduced_scan_builds``, ``tri_block_builds``,
   ``tri_bidiag_builds``: the triangles that ``precond/cp.py::_build_tri``
   and ``_build_tri_upper`` built in each form, on any device;
+* ``block_card_packs``: the blocked-substitution factors that
+  ``precond/trisolve.py::build_block_tri`` placed on a CUDA device;
 * ``scan_pack_us``: the host microseconds spent in
   ``precond/trisolve.py::pack_reduced_scan_np``;
 * ``scan_grid_launches``, ``scan_cluster_launches``: the B6 scans of
@@ -109,7 +111,7 @@ KERNELS = ("dia_spmv", "bidiag_scan", "df_dia_spmv", "band_tri", "csr_spmv",
 PATHS = ("mixed_device_loops", "mixed_fallbacks", "dia_card_packs",
          "dia_gate_refusals", "tri_reduced_scan_builds", "tri_block_builds",
          "tri_bidiag_builds", "scan_pack_us", "scan_grid_launches",
-         "scan_cluster_launches")
+         "scan_cluster_launches", "block_card_packs")
 COUNTS = dict.fromkeys(KERNELS + PATHS, 0)
 _COUNTS_LOCK = threading.Lock()
 

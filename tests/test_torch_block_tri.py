@@ -13,7 +13,11 @@ not a multiple of the panel.
 * packing: the port's ``off_data`` / ``off_cols`` equal the JAX package's
   (both int32 columns) and ``inv_diag`` equals it; ``off_counts`` holds each
   row's off-panel entries, which sit in the row's first slots, with zeros
-  (column 0) after them, as kernel B9 reads them;
+  (column 0) after them, as kernel B9 reads them; also at ragged n, with
+  rows and panels that hold no off-panel entry (a block-diagonal triangle:
+  K = 1) and as a float32 factor.  A stored zero on the diagonal raises
+  ZeroDivisionError naming its panel, an entry right of its diagonal panel
+  ValueError, and a CPU build counts no card pack (``block_card_packs``);
 * solve: the plain version against the JAX package's ``block_tri_solve``
   on factors packed from the same matrix, and against scipy's f64
   ``spsolve_triangular``: relative 2-norm <= 1e-12 (f64) and 4e-4 (f32).
@@ -77,17 +81,41 @@ def _random_lower(n, density, seed):
     return (low + sp.diags(rng.uniform(2.0, 4.0, n))).tocsr()
 
 
+def _no_off_rows(n, panel, seed, some=True):
+    """A random lower triangle whose odd panels hold no entry left of
+    themselves, and whose even panels hold one only in every third row;
+    with ``some`` false, no row holds one."""
+    T = _random_lower(n, 0.05, seed).tocoo()
+    blk = T.row // panel
+    keep = (T.col >= blk * panel) | (
+        some & (blk % 2 == 0) & (T.row % 3 == 0))
+    return sp.csr_matrix((T.data[keep], (T.row[keep], T.col[keep])),
+                         shape=T.shape)
+
+
 def _matrix(case):
     if case in ("L", "U"):
         return _cvxqp1_m_triangles()[case], 256
     if case == "L_p2048":
         return _cvxqp1_m_triangles()["L"], 2048
+    if case == "no_off_rows":
+        return _no_off_rows(300, 16, seed=5), 16
+    if case == "block_diagonal":
+        return _no_off_rows(70, 8, seed=6, some=False), 8   # K = 1
     n, density, panel = {"rand_500_p64": (500, 0.02, 64),
-                         "rand_97_p16": (97, 0.1, 16)}[case]
+                         "rand_97_p16": (97, 0.1, 16),
+                         "rand_997_p16": (997, 0.01, 16),
+                         "rand_50_p4": (50, 0.1, 4),
+                         "rand_1030_p4": (1030, 0.005, 4)}[case]
     return _random_lower(n, density, seed=n), panel
 
 
 CASES = ["L", "U", "rand_500_p64", "rand_97_p16", "L_p2048"]
+# the layout also at ragged n (rand_1030_p4: more than 256 panels of at
+# most 64 rows, which LAPACK inverts in one batched call), with rows and
+# whole panels that hold no off-panel entry, and as a float32 factor
+LAYOUT_CASES = CASES + ["rand_997_p16", "rand_50_p4", "rand_1030_p4",
+                        "no_off_rows", "block_diagonal", "L_f32"]
 
 
 def _rel(x, ref):
@@ -95,11 +123,12 @@ def _rel(x, ref):
     return np.linalg.norm(x - ref) / np.linalg.norm(ref)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", LAYOUT_CASES)
 def test_layout_reproduces_the_ell(case):
-    T, panel = _matrix(case)
-    pt = build_block_tri(T, torch.float64, "cpu", panel=panel)
-    jt = jtri.build_block_tri(T, panel=panel, dtype=np.float64)
+    dtype = np.float32 if case.endswith("_f32") else np.float64
+    T, panel = _matrix(case.removesuffix("_f32"))
+    pt = build_block_tri(T, TORCH[dtype], "cpu", panel=panel)
+    jt = jtri.build_block_tri(T, panel=panel, dtype=dtype)
     assert pt.off_cols.dtype == torch.int32
     assert pt.off_counts.dtype == torch.int32
     np.testing.assert_array_equal(pt.off_cols.numpy(),
@@ -123,8 +152,8 @@ def test_layout_reproduces_the_ell(case):
     rebuilt = sp.csr_matrix((data[used], cols[used],
                              np.concatenate([[0], np.cumsum(counts)])),
                             shape=(n_pad, n))
-    ref = sp.csr_matrix((coo.data[off], (coo.row[off], coo.col[off])),
-                        shape=(n_pad, n))
+    ref = sp.csr_matrix((coo.data[off].astype(dtype),
+                         (coo.row[off], coo.col[off])), shape=(n_pad, n))
     assert (rebuilt != ref).nnz == 0
     assert np.array_equal(rebuilt.indices, ref.indices)   # column order
 
@@ -221,3 +250,41 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         block_tri(wide, torch.empty(3 * 2048, dtype=torch.float64,
                                     device=meta))
+
+
+@pytest.mark.parametrize("n,panel", [(97, 16), (1030, 4)])
+def test_a_zero_pivot_raises(n, panel):
+    """A stored zero on the diagonal makes its panel singular: the pack
+    names the first such panel (a diagonal entry that is not stored reads
+    1, as in the JAX package's pack)."""
+    T = _random_lower(n, 0.05, seed=n)
+    for r in (2 * panel + 1, 3 * panel):        # stored zeros, kept as such
+        lo, hi = T.indptr[r], T.indptr[r + 1]
+        T.data[lo + np.flatnonzero(T.indices[lo:hi] == r)] = 0.0
+    with pytest.raises(ZeroDivisionError, match="singular diagonal panel 2"):
+        build_block_tri(T, torch.float64, "cpu", panel=panel)
+
+
+def test_an_entry_right_of_its_panel_raises():
+    T = _random_lower(97, 0.05, seed=3).tolil()
+    T[5, 40] = 1.0
+    with pytest.raises(ValueError, match="right of their diagonal panel"):
+        build_block_tri(T.tocsr(), torch.float64, "cpu", panel=16)
+
+
+def test_a_cpu_build_counts_no_card_pack():
+    """``block_card_packs`` counts placements on a CUDA device only: the
+    CPU build of cvxqp1_m's factor counts its two blocked triangles and no
+    card pack."""
+    from cpkrylov_tpu_torch.precond.cp import build_factor_apply
+    from cpkrylov_tpu_torch.utils.profiling import path_counts
+
+    f = load_fixture("cvxqp1_m")
+    hf = factorize_kp(f.G, f.B, f.C)
+    before = path_counts()
+    fa = build_factor_apply(hf.fac, hf.n + hf.m, 256, torch.float64, "cpu")
+    after = path_counts()
+    assert isinstance(fa.tf1, BlockTriFactor)
+    assert isinstance(fa.tf2, BlockTriFactor)
+    assert after["tri_block_builds"] == before["tri_block_builds"] + 2
+    assert after["block_card_packs"] == before["block_card_packs"]

@@ -32,7 +32,10 @@ The df64 triangle product (B10) rounds every step of its chain
 explicitly: hi and lo equal its plain version's exactly, also with the
 special values of x[0] that its padding slots read.  The DIA placement on
 the card moves and rounds each value as on the CPU and as the host pack it
-replaced: exact, and the main system's solves keep their bits.
+replaced: exact, and the main system's solves keep their bits.  So does
+the blocked factor's placement on the card (its ELL arrays against the CPU
+pack); its panel inverses, a batched triangular solve on the card against
+LAPACK's trtri on the CPU, to CARD_INV_TOL.
 """
 import functools
 
@@ -826,6 +829,7 @@ def test_mm_path_goes_through_kernels(cuda, system):
 # Blocked substitution (B9) and the df64 triangle product (B10)
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=1)
 def _cvxqp3_2000_triangles():
     """(L + I, J U J) of the host LDL^T of ``cvxqp_kkt("cvxqp3", 2000)``:
     14 panels of 256 rows, ELL widths 229 and 118, solutions up to ~6e8
@@ -890,6 +894,7 @@ def test_block_tri_kernel_small_panels_and_ragged_n(cuda):
         assert _rel2(x, xp) <= BAND_TOL[torch.float64], (n, panel)
 
 
+@functools.lru_cache(maxsize=1)
 def _cvxqp1_m_triangles():
     """(L + I, J U J) of cvxqp1_m's host LDL^T, as scipy CSR."""
     from cpkrylov_tpu_torch.precond.cp import factorize_kp
@@ -955,6 +960,90 @@ def test_block_tri_kernel_keeps_rhs_off_chip_past_shared_memory(
         ref = spla.spsolve_triangular(T, b64, lower=True)
         assert _rel2(x, xp) <= BLOCK_TOL[torch.float64], label
         assert _rel2(x, ref) <= BLOCK_TOL[torch.float64], label
+
+
+# the card's panel inverses (a batched triangular solve) against LAPACK's
+# trtri of the CPU pack: relative Frobenius norm of each panel's difference
+# (the same solve on the CPU reads at most 9.3e-16 on these factors)
+CARD_INV_TOL = 1e-13
+
+
+@pytest.mark.parametrize("panel", [256, 1536, 2048])
+@pytest.mark.parametrize("system", ["cvxqp3_2000", "cvxqp1_m"])
+def test_card_pack_matches_the_cpu_pack(cuda, system, panel):
+    """The blocked factor placed on the card: the ELL arrays bit for bit
+    against the CPU pack (f64 and f32), the panel inverses to
+    CARD_INV_TOL, and B9 on it to BLOCK_TOL of the plain solve of the CPU
+    pack; each pack counts one ``block_card_packs``."""
+    from cpkrylov_tpu_torch.precond import cuda_block_tri
+    from cpkrylov_tpu_torch.precond.cuda_block_tri import \
+        block_tri_solve_plain
+    from cpkrylov_tpu_torch.precond.trisolve import build_block_tri
+    from cpkrylov_tpu_torch.utils.profiling import path_counts
+
+    tris = (_cvxqp3_2000_triangles() if system == "cvxqp3_2000"
+            else _cvxqp1_m_triangles())
+    rng = np.random.default_rng(29)
+    for label, T in tris.items():
+        for dtype in DTYPES:
+            before = path_counts()["block_card_packs"]
+            card = build_block_tri(T, dtype, cuda, panel=panel)
+            assert path_counts()["block_card_packs"] == before + 1
+            host = build_block_tri(T, dtype, "cpu", panel=panel)
+            for name in ("off_data", "off_cols", "off_counts"):
+                got, want = getattr(card, name), getattr(host, name)
+                assert got.device.type == "cuda" and got.is_contiguous()
+                assert torch.equal(got.cpu(), want), (label, name, dtype)
+            assert card.inv_diag.dtype == dtype
+            assert (card.n, card.panel) == (host.n, host.panel)
+        # the last pair is f64
+        diff = torch.linalg.norm(card.inv_diag.cpu() - host.inv_diag,
+                                 dim=(1, 2))
+        assert torch.all(diff <= CARD_INV_TOL * torch.linalg.norm(
+            host.inv_diag, dim=(1, 2))), label
+        b64 = rng.standard_normal(T.shape[0])
+        x = cuda_block_tri.block_tri(card, torch.as_tensor(b64, device=cuda))
+        xp = block_tri_solve_plain(host, torch.as_tensor(b64))
+        assert _rel2(x, xp) <= BLOCK_TOL[torch.float64], label
+
+
+def test_card_pack_raises_on_a_zero_pivot(cuda):
+    """A stored zero on the diagonal of panel 2 (p 16): the card pack names
+    the panel, as the CPU pack does, and counts no card pack."""
+    from cpkrylov_tpu_torch.precond.trisolve import build_block_tri
+    from cpkrylov_tpu_torch.utils.profiling import path_counts
+
+    rng = np.random.default_rng(31)
+    low = sp.tril(sp.random(97, 97, density=0.05, random_state=rng), k=-1)
+    T = (low + sp.diags(rng.uniform(2.0, 4.0, 97))).tocsr()
+    lo, hi = T.indptr[33], T.indptr[34]
+    T.data[lo + np.flatnonzero(T.indices[lo:hi] == 33)] = 0.0
+    before = path_counts()["block_card_packs"]
+    for device in (cuda, "cpu"):
+        with pytest.raises(ZeroDivisionError,
+                           match="singular diagonal panel 2"):
+            build_block_tri(T, torch.float64, device, panel=16)
+    assert path_counts()["block_card_packs"] == before
+
+
+def test_factor_apply_packs_both_triangles_on_the_card(cuda):
+    """``build_factor_apply`` on the card places both blocked triangles
+    there: ``block_card_packs`` grows by two, as ``tri_block_builds``."""
+    from cpkrylov_tpu_torch.precond.cp import (build_factor_apply,
+                                               factorize_kp)
+    from cpkrylov_tpu_torch.precond.trisolve import BlockTriFactor
+    from cpkrylov_tpu_torch.utils.mm import cvxqp_kkt
+    from cpkrylov_tpu_torch.utils.profiling import path_counts
+
+    s = cvxqp_kkt("cvxqp3", 2000)
+    hf = factorize_kp(s.G, s.B, s.C)
+    before = path_counts()
+    fa = build_factor_apply(hf.fac, hf.n + hf.m, 256, torch.float64, cuda)
+    after = path_counts()
+    assert isinstance(fa.tf1, BlockTriFactor)
+    assert isinstance(fa.tf2, BlockTriFactor)
+    for key in ("block_card_packs", "tri_block_builds"):
+        assert after[key] == before[key] + 2, key
 
 
 def test_df_tri_kernel_walk_keeps_special_x0_bits(cuda):

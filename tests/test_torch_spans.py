@@ -32,7 +32,8 @@ NEW_METRICS = ("driver.pack_ms", "driver.upload_ms", "precond.ldl_ms",
                "krylov.apply_ms_per_iter", "krylov.host_reads_per_iter",
                "krylov.read_wait_ms_per_iter", "mixed.fallback_share",
                "driver.dia_card_pack_share", "kernel.band_tri_roofline",
-               "precond.scan_pack_s", "kernel.scan_grid_share")
+               "precond.scan_pack_s", "kernel.scan_grid_share",
+               "precond.block_card_pack_share")
 # the AUG2D-L cell at grid 40: the reduced-scan factor at p 80, r 79
 AUG_GRID = 40
 
@@ -269,7 +270,8 @@ def _counts(loops, fallbacks):
             "dia_card_packs": 0, "dia_gate_refusals": 0,
             "tri_reduced_scan_builds": 0, "tri_block_builds": 0,
             "tri_bidiag_builds": 0, "scan_pack_us": 0,
-            "scan_grid_launches": 0, "scan_cluster_launches": 0}
+            "scan_grid_launches": 0, "scan_cluster_launches": 0,
+            "block_card_packs": 0}
 
 
 def test_a_fallback_is_counted():
@@ -467,6 +469,27 @@ def test_the_scan_grid_share_reads_the_counters(monkeypatch):
     assert read(run) == 0.0
     # a program with the other counters alone, or with none
     _only(monkeypatch, lambda k: not k.startswith("scan_"))
+    assert read(run) is None
+    monkeypatch.delattr(prof, "path_counts")
+    assert read(run) is None
+
+
+def test_the_block_card_pack_share_reads_the_counters(monkeypatch):
+    _, run = _tiny_run("cvxqp3_l.ipm_steps")
+    read = harness.metric_reader("precond.block_card_pack_share")
+    # the CPU run built blocked factors and placed none on a card
+    assert prof.path_counts()["tri_block_builds"] > 0
+    assert read(run) == 0.0
+    monkeypatch.setitem(prof.COUNTS, "tri_block_builds", 0)
+    monkeypatch.setitem(prof.COUNTS, "block_card_packs", 0)
+    assert read(run) is None
+    monkeypatch.setitem(prof.COUNTS, "tri_block_builds", 8)
+    monkeypatch.setitem(prof.COUNTS, "block_card_packs", 8)
+    assert read(run) == pytest.approx(100.0)
+    monkeypatch.setitem(prof.COUNTS, "block_card_packs", 6)
+    assert read(run) == pytest.approx(75.0)
+    # a program without the card pack's counter, or with no counters
+    _only(monkeypatch, lambda k: k != "block_card_packs")
     assert read(run) is None
     monkeypatch.delattr(prof, "path_counts")
     assert read(run) is None

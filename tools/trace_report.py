@@ -11,7 +11,10 @@ Reads the Chrome trace and the requests that ``portbench/run.py
   ``cpkrylov.solve_mixed / python``), and the ten largest labels;
 * ``build``: for each traced request's ``cpkrylov.build`` span, its length,
   the share of it that the ``cpkrylov.build.*`` spans cover, and the host
-  time of the ``cpkrylov.upload`` spans inside it;
+  time of the ``cpkrylov.upload`` spans inside it; ``pack`` splits its
+  ``cpkrylov.build.pack`` spans: their host time, the ``cpkrylov.upload``
+  host time inside them, the device's busy time inside them and its H2D
+  copies issued from them;
 * ``traced_wall_ms``: the traced requests' wall times, and
   ``untraced_wall_ms`` the mean of the others.
 
@@ -63,6 +66,7 @@ def report(cell: str, out_dir: str) -> dict:
     uploads = _spans(events, "cpkrylov.upload")
     h2d_total = h2d_in = 0.0
     unmatched = 0
+    h2d = []        # (issued at, duration) of each matched copy
     for e in events:
         if (e.get("ph") == "X" and e.get("cat") == "gpu_memcpy"
                 and "HtoD" in e.get("name", "")
@@ -72,7 +76,9 @@ def report(cell: str, out_dir: str) -> dict:
             t = launch_ts.get(e.get("args", {}).get("correlation"))
             if t is None:
                 unmatched += 1
-            elif _within(t, uploads):
+                continue
+            h2d.append((t, dur))
+            if _within(t, uploads):
                 h2d_in += dur
 
     gaps = tr.idle_gaps(lo, hi, top=10 ** 6)
@@ -80,15 +86,27 @@ def report(cell: str, out_dir: str) -> dict:
     unnamed = sum(v for n, v in gaps if n in UNNAMED)
 
     parts = [sp for n in BUILD_PARTS for sp in _spans(events, n)]
+    packs = _spans(events, "cpkrylov.build.pack")
     build = []
     for b0, b1 in _spans(events, "cpkrylov.build"):
         if lo <= b0 and b1 <= hi:
             covered = union_s([sp for sp in parts if b0 <= sp[0]
                                and sp[1] <= b1], b0, b1)
             upload = sum(e - s for s, e in uploads if b0 <= s and e <= b1)
+            mine = [(s, e) for s, e in packs if b0 <= s and e <= b1]
             build.append({"ms": (b1 - b0) / 1e3,
                           "covered": covered * 1e6 / (b1 - b0),
-                          "upload_ms": upload / 1e3})
+                          "upload_ms": upload / 1e3,
+                          "pack": {
+                              "ms": sum(e - s for s, e in mine) / 1e3,
+                              "upload_ms": sum(
+                                  e - s for s, e in uploads
+                                  if any(p0 <= s and e <= p1
+                                         for p0, p1 in mine)) / 1e3,
+                              "busy_ms": sum(tr.busy_s(s, e)
+                                             for s, e in mine) * 1e3,
+                              "h2d_ms": sum(d for t, d in h2d
+                                            if _within(t, mine)) / 1e3}})
 
     ntrace = len(reqs)
     walls = [1e3 * r["wall_s"] for r in requests]

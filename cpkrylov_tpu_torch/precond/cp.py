@@ -18,10 +18,14 @@ in f32 and f64 alike:
   otherwise the reduced-state scan form (``trisolve.ReducedScanTriFactor``,
   kernels B4 and B6 in ``cuda_tri.py``) at the first panel p of (p0, 128,
   256, 512, 1024), p0 the reach rounded up to a multiple of 8 (at least 8),
-  with reach <= p, n >= max(16 p, 2048) and the dense panel inverses within
-  2 GiB; else blocked substitution (``trisolve.BlockTriFactor``).  An upper
-  factor other than the bidiagonal scan solves its index reversal between
-  two flips;
+  with reach <= p <= ``cuda_tri.MAX_PANEL`` (1024, B4/B6's largest panel),
+  n >= max(16 p, 2048) and the dense panel inverses within 2 GiB; else
+  blocked substitution (``trisolve.BlockTriFactor``, any panel).  The cap
+  on p is the port's own: the JAX rule starts at p0 with no cap, so a
+  factor of reach above 1024 with n >= 16 p0 (n >= 16,448) takes the
+  reduced-scan form there and blocked substitution here, on the CPU as on
+  the card.  An upper factor other than the bidiagonal scan solves its
+  index reversal between two flips;
 * K_P: DIA when the natural-order pack passes the fill gate (``ops/dia.py``),
   else CSR (kernel B5, ``ops/cuda_spmv.py``);
 * at f32, the df64-applied factor (``df_factor.py``) when the build probe
@@ -51,6 +55,7 @@ from ..utils.profiling import (APPLY_SPAN, BUILD_LDL_SPAN, BUILD_ORDER_SPAN,
 from . import ldl_host
 from .cuda_bidiag import (BidiagTriFactor, build_bidiag_tri,
                           build_bidiag_tri_upper)
+from .cuda_tri import MAX_PANEL
 from .df_factor import build_df_factor_apply
 from .permute import interleave_candidates, plan_permute
 from .trisolve import (ReducedScanTriFactor, build_block_tri,
@@ -236,8 +241,9 @@ def _reach(T, upper: bool) -> int:
 
 def _build_tri(T, panel: int, dtype, device):
     """Lower factor: the bidiagonal scan for reach <= 1, else the
-    reduced-state scan form at the first panel that passes the size and
-    memory gates, else blocked substitution at ``panel``."""
+    reduced-state scan form at the first panel up to ``MAX_PANEL`` that
+    passes the size and memory gates, else blocked substitution at
+    ``panel``."""
     reach = _reach(T, upper=False)
     if reach <= 1:
         tf = build_bidiag_tri(T, dtype=dtype, device=device)
@@ -247,9 +253,11 @@ def _build_tri(T, panel: int, dtype, device):
     itemsize = torch.empty((), dtype=dtype).element_size()
     p0 = max(8, -(-max(reach, 1) // 8) * 8)
     for p in (p0, 128, 256, 512, 1024):
-        # the JAX package's gates, so that both pick the same form: small
-        # systems stay on blocked substitution
-        if reach <= p and n >= max(16 * p, 2048):
+        # the JAX package's gates (small systems stay on blocked
+        # substitution), and B4/B6's largest panel, which the JAX rule
+        # lacks: a reach above MAX_PANEL takes blocked substitution on
+        # every device
+        if reach <= p <= MAX_PANEL and n >= max(16 * p, 2048):
             if -(-n // p) * p * p * itemsize > MAX_SCAN_BYTES:
                 break
             tf = build_reduced_scan_tri(T, dtype=dtype, device=device,

@@ -13,6 +13,10 @@ improved.  The restart's triangular solve is the JAX package's masked
 full-size solve (``torch.linalg.solve_triangular``).  The reference's
 complex-value guards (cpgmres.m:174-176, 220-222, 244-246) become clamps to
 zero of the coupled norms, and a zero norm leaves its pair unnormalized.
+
+Each step's Gram-Schmidt and rotations sit in a ``cpkrylov.arnoldi`` span,
+each restart block in a ``cpkrylov.gmres.restart`` span, and the counter
+``gmres_restarts`` counts the restart blocks (``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from ..config import SolverOptions
 from ..precond.cp import CPPrecond, CPState
 from ..utils.device import host_read
+from ..utils.profiling import ARNOLDI_SPAN, GMRES_RESTART_SPAN, count, span
 from .common import (KrylovResult, STATUS_BREAKDOWN, STATUS_ITMAX,
                      STATUS_SOLVED, apply_manifold_veto, coupled_dot,
                      history_init, resolve_itmax, resolve_operators,
@@ -90,56 +95,57 @@ def cpgmres(b: torch.Tensor, A, C, M: CPPrecond,
             u = A.matvec(vk)
             t = C.matvec(qk)
             mstate, w1, w2, _ = M.apply_nm(mstate, u, -t)
-            vnew = w1
-            qnew = qk - w2
+            with span(ARNOLDI_SPAN):
+                vnew = w1
+                qnew = qk - w2
 
-            # Modified Gram-Schmidt against all previous pairs
-            # (cpgmres.m:214-218).
-            h = []
-            for j in range(k + 1):
-                hj = coupled_dot(V[j], u, Q[j], t)
-                h.append(hj)
-                vnew = vnew - hj * V[j]
-                qnew = qnew - hj * Q[j]
-            if opts.reorth:
-                # Second pass ("twice is enough") against the K_P-image of
-                # the candidate's raw preconditioned coordinates: the
-                # deflated candidate's raw pair is (vnew, q_k - qnew), and
-                # one K_P product gives its duals (cpkrylov_tpu/solvers/
-                # cpgmres.py:130-150; the reference documents `reorth` but
-                # never implements it, cpgmres.m:81-82).
-                kp_im = M.mul_kp(torch.cat([vnew, qk - qnew]))
-                u = kp_im[:n]
-                t = -kp_im[n:]
+                # Modified Gram-Schmidt against all previous pairs
+                # (cpgmres.m:214-218).
+                h = []
                 for j in range(k + 1):
                     hj = coupled_dot(V[j], u, Q[j], t)
-                    h[j] = h[j] + hj
+                    h.append(hj)
                     vnew = vnew - hj * V[j]
                     qnew = qnew - hj * Q[j]
-            # A nonpositive coupled inner product is a breakdown: lucky or
-            # a loss of M-positivity past convergence (the reference goes
-            # complex, cpgmres.m:219-222).  The step completes with
-            # hsub = 0, the sweep ends and the restart's true residual
-            # decides whether the solve is done.
-            dsub = coupled_dot(u, vnew, t, qnew)
-            hsub = torch.sqrt(torch.clamp(dsub, min=0.0))
-            V[k + 1], Q[k + 1] = safe_normalize_pair(vnew, qnew, hsub)
+                if opts.reorth:
+                    # Second pass ("twice is enough") against the K_P-image of
+                    # the candidate's raw preconditioned coordinates: the
+                    # deflated candidate's raw pair is (vnew, q_k - qnew), and
+                    # one K_P product gives its duals (cpkrylov_tpu/solvers/
+                    # cpgmres.py:130-150; the reference documents `reorth` but
+                    # never implements it, cpgmres.m:81-82).
+                    kp_im = M.mul_kp(torch.cat([vnew, qk - qnew]))
+                    u = kp_im[:n]
+                    t = -kp_im[n:]
+                    for j in range(k + 1):
+                        hj = coupled_dot(V[j], u, Q[j], t)
+                        h[j] = h[j] + hj
+                        vnew = vnew - hj * V[j]
+                        qnew = qnew - hj * Q[j]
+                # A nonpositive coupled inner product is a breakdown: lucky or
+                # a loss of M-positivity past convergence (the reference goes
+                # complex, cpgmres.m:219-222).  The step completes with
+                # hsub = 0, the sweep ends and the restart's true residual
+                # decides whether the solve is done.
+                dsub = coupled_dot(u, vnew, t, qnew)
+                hsub = torch.sqrt(torch.clamp(dsub, min=0.0))
+                V[k + 1], Q[k + 1] = safe_normalize_pair(vnew, qnew, hsub)
 
-            # Previous rotations (cpgmres.m:229-234).
-            h.append(hsub)
-            for j in range(k):
-                hj = cs[j] * h[j] + sn[j] * h[j + 1]
-                hj1 = sn[j] * h[j] - cs[j] * h[j + 1]
-                h[j], h[j + 1] = hj, hj1
+                # Previous rotations (cpgmres.m:229-234).
+                h.append(hsub)
+                for j in range(k):
+                    hj = cs[j] * h[j] + sn[j] * h[j + 1]
+                    hj1 = sn[j] * h[j] - cs[j] * h[j + 1]
+                    h[j], h[j + 1] = hj, hj1
 
-            # Current rotation (cpgmres.m:236-247).
-            ck, sk, dk = sym_givens(h[k], h[k + 1])
-            cs[k], sn[k] = ck, sk
-            h[k], h[k + 1] = dk, zero
-            gk = g[k]
-            g[k + 1] = sk * gk
-            g[k] = ck * gk
-            cols.append(torch.stack(h))
+                # Current rotation (cpgmres.m:236-247).
+                ck, sk, dk = sym_givens(h[k], h[k + 1])
+                cs[k], sn[k] = ck, sk
+                h[k], h[k + 1] = dk, zero
+                gk = g[k]
+                g[k + 1] = sk * gk
+                g[k] = ck * gk
+                cols.append(torch.stack(h))
 
             resid_h, brk = host_read(torch.stack(
                 [torch.abs(g[k + 1]), (dsub <= 0).to(dtype)]))
@@ -157,37 +163,39 @@ def cpgmres(b: torch.Tensor, A, C, M: CPPrecond,
         # whose rotation gave no residual reduction (|c| ~ 0, the degenerate
         # post-floor regime), are masked the same way: the reference's
         # backslash would blow up there and poison the back substitution.
-        R = torch.zeros((restart, restart), dtype=dtype, device=dev)
-        for j, col in enumerate(cols):
-            col = col[:restart]
-            R[: col.shape[0], j] = col
-        c_all = torch.stack(cs)
-        diag = torch.abs(torch.diagonal(R))
-        rank_tol = sqrt_eps * torch.max(diag)
-        dead = (idx >= k) | (diag < rank_tol) | (torch.abs(c_all) < 1e-8)
-        Rsq = torch.where(dead[:, None], torch.zeros_like(R), R) + torch.diag(
-            dead.to(dtype))
-        gmask = torch.where(dead, torch.zeros_like(c_all),
-                            torch.stack(g[:restart]))
-        z = torch.linalg.solve_triangular(Rsq, gmask[:, None],
-                                          upper=True)[:, 0]
-        x_n = x + z @ V[:restart]
-        y_n = y - z @ Q[:restart]
+        count("gmres_restarts")
+        with span(GMRES_RESTART_SPAN):
+            R = torch.zeros((restart, restart), dtype=dtype, device=dev)
+            for j, col in enumerate(cols):
+                col = col[:restart]
+                R[: col.shape[0], j] = col
+            c_all = torch.stack(cs)
+            diag = torch.abs(torch.diagonal(R))
+            rank_tol = sqrt_eps * torch.max(diag)
+            dead = (idx >= k) | (diag < rank_tol) | (torch.abs(c_all) < 1e-8)
+            Rsq = torch.where(dead[:, None], torch.zeros_like(R),
+                              R) + torch.diag(dead.to(dtype))
+            gmask = torch.where(dead, torch.zeros_like(c_all),
+                                torch.stack(g[:restart]))
+            z = torch.linalg.solve_triangular(Rsq, gmask[:, None],
+                                              upper=True)[:, 0]
+            x_n = x + z @ V[:restart]
+            y_n = y - z @ Q[:restart]
 
-        # Reseed for the next sweep (cpgmres.m:167-180).  The reseed's true
-        # residual doubles as a verification: a sweep that made the iterate
-        # worse (a degenerate basis amplifying noise through the back
-        # substitution) is rolled back and the solver exits.
-        mstate, v1, q1, seed_t = true_resid(b, A, C, M, mstate, x_n, y_n)
-        v1, q1 = safe_normalize_pair(v1, q1, seed_t)
-        seed = host_read(seed_t)
+            # Reseed for the next sweep (cpgmres.m:167-180).  The reseed's true
+            # residual doubles as a verification: a sweep that made the iterate
+            # worse (a degenerate basis amplifying noise through the back
+            # substitution) is rolled back and the solver exits.
+            mstate, v1, q1, seed_t = true_resid(b, A, C, M, mstate, x_n, y_n)
+            v1, q1 = safe_normalize_pair(v1, q1, seed_t)
+            seed = host_read(seed_t)
 
-        improved = seed < resid_seed
-        if improved:
-            x, y = x_n, y_n
-            resid_seed = seed
-        V[0] = v1
-        Q[0] = q1
+            improved = seed < resid_seed
+            if improved:
+                x, y = x_n, y_n
+                resid_seed = seed
+            V[0] = v1
+            Q[0] = q1
         g_seed = seed_t
         # After a breakdown the inner estimate is not trustworthy; the
         # freshly computed true residual governs continuation instead.

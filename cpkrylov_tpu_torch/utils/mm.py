@@ -87,16 +87,12 @@ def cvxqp_problem(family: str, n: int):
     return Q, J, lo, hi, rhs_eq, m
 
 
-def cvxqp_kkt(family: str, n: int | str = "s", *, mu: float = 1e-4,
-              rho: float = 0.0, delta: float = 1e-8, seed: int = 0,
-              g_mode: str = "diag") -> SaddleSystem:
-    """CVXQP{1,2,3} KKT system at a simulated interior-point iterate.
-
-    ``n`` may be an int or a catalogue size letter ("s"/"m"/"l" — the -S/-M/-L
-    suffixes of the Maros–Mészáros names).  ``delta`` defaults to the 1e-8
-    pure delta-regularization measured in the shipped fixtures.  ``g_mode``
-    selects the preconditioner block G: "diag" (Jacobi of H, as the
-    reference's examples build it, cpk_exprog1.m:59-64) or "identity".
+def _cvxqp_iterate(family: str, n: int | str, mu: float, delta: float,
+                   seed: int) -> dict:
+    """A CVXQP problem at its seeded interior-point iterate: ``Q``, ``J``,
+    the bound slacks ``s_lo`` = x - l and ``s_hi`` = u - x, the multipliers
+    ``z_lo`` and ``z_hi``, and the Newton right-hand side's rows ``b_dual``
+    = -(Qx + J'y - z_l + z_u) and ``b_primal`` = -(Jx - rhs_eq - delta y).
     """
     if isinstance(n, str):
         n = CVXQP_SIZES[n.lower()]
@@ -112,9 +108,31 @@ def cvxqp_kkt(family: str, n: int | str = "s", *, mu: float = 1e-4,
     x = lo + t * (hi - lo)
     z_lo = mu ** rng.uniform(0.0, 2.0, size=n) / (x - lo)
     z_hi = mu ** rng.uniform(0.0, 2.0, size=n) / (hi - x)
-    barrier = z_lo / (x - lo) + z_hi / (hi - x)
+    # The Newton RHS comes from the actual KKT residuals at the iterate; the
+    # nonzero constraint part b_primal exercises the driver's RHS-shift path
+    # (reg_cpkrylov.m:152-160), matching the shipped fixtures.
+    y = rng.standard_normal(m)
+    return dict(Q=Q, J=J, s_lo=x - lo, s_hi=hi - x, z_lo=z_lo, z_hi=z_hi,
+                b_dual=-(Q @ x + J.T @ y - z_lo + z_hi),
+                b_primal=-(J @ x - rhs_eq - delta * y))
 
-    H = (Q + sp.diags(barrier)).tocsr()
+
+def cvxqp_kkt(family: str, n: int | str = "s", *, mu: float = 1e-4,
+              rho: float = 0.0, delta: float = 1e-8, seed: int = 0,
+              g_mode: str = "diag") -> SaddleSystem:
+    """CVXQP{1,2,3} KKT system at a simulated interior-point iterate.
+
+    ``n`` may be an int or a catalogue size letter ("s"/"m"/"l" — the -S/-M/-L
+    suffixes of the Maros–Mészáros names).  ``delta`` defaults to the 1e-8
+    pure delta-regularization measured in the shipped fixtures.  ``g_mode``
+    selects the preconditioner block G: "diag" (Jacobi of H, as the
+    reference's examples build it, cpk_exprog1.m:59-64) or "identity".
+    """
+    it = _cvxqp_iterate(family, n, mu, delta, seed)
+    n, m = it["Q"].shape[0], it["J"].shape[0]
+    barrier = it["z_lo"] / it["s_lo"] + it["z_hi"] / it["s_hi"]
+
+    H = (it["Q"] + sp.diags(barrier)).tocsr()
     if rho:
         H = (H + rho * sp.identity(n)).tocsr()
     C = (delta * sp.identity(m)).tocsr()
@@ -125,19 +143,46 @@ def cvxqp_kkt(family: str, n: int | str = "s", *, mu: float = 1e-4,
     else:
         raise ValueError(f"unknown g_mode {g_mode!r}")
 
-    K = sp.bmat([[H, J.T], [J, -C]], format="csr")
-    # Newton RHS built from the actual KKT residuals at the simulated
-    # iterate: b1 = -(dual residual Qx + J'y - z_lo + z_hi), b2 = -(primal
-    # residual Jx - rhs_eq - delta*y).  The nonzero constraint part b2
-    # exercises the driver's RHS-shift path (reg_cpkrylov.m:152-160),
-    # matching the shipped fixtures.
-    y = rng.standard_normal(m)
-    b1 = -(Q @ x + J.T @ y - z_lo + z_hi)
-    b2 = -(J @ x - rhs_eq - delta * y)
-    b = np.concatenate([b1, b2])
-    return SaddleSystem(name=f"{family}_{n}", A=H, B=J, C=C, G=G, b=b, K=K)
+    K = sp.bmat([[H, it["J"].T], [it["J"], -C]], format="csr")
+    b = np.concatenate([it["b_dual"], it["b_primal"]])
+    return SaddleSystem(name=f"{family}_{n}", A=H, B=it["J"], C=C, G=G, b=b,
+                        K=K)
 
 
+def cvxqp_kkt_unreduced(family: str, n: int | str = "s", *,
+                        mu: float = 1e-4, delta: float = 1e-8,
+                        sigma: float = 0.1, seed: int = 0) -> SaddleSystem:
+    """CVXQP{1,2,3} Newton system at ``cvxqp_kkt``'s iterate with the bound
+    multipliers kept: the unknowns are (dx, dz_l, dz_u | dy) and
+
+        A = [[Q,    -I,    I  ],     B = [J, 0, 0],   C = delta I,
+             [Z_l,  X-L,   0  ],     G = diag(A),
+             [-Z_u, 0,     U-X]],
+
+    nonsymmetric, as the reference's second example builds its 3x3 system
+    (cpk_exprog2.m, solved by CPGMRES with G = diag(A)).  The right-hand
+    side is the negated dual residual ``Qx + J'y - z_l + z_u``, the
+    centred complementarity ``sigma mu e - (X-L) z_l`` and ``sigma mu e -
+    (U-X) z_u``, then the negated primal residual.  The iterate is
+    ``cvxqp_kkt``'s: eliminating dz_l and dz_u gives its H = Q + Z_l
+    (X-L)^-1 + Z_u (U-X)^-1 and its J and C.
+    """
+    it = _cvxqp_iterate(family, n, mu, delta, seed)
+    Q, J = it["Q"], it["J"]
+    (n, m) = Q.shape[0], J.shape[0]
+    s_lo, s_hi, z_lo, z_hi = it["s_lo"], it["s_hi"], it["z_lo"], it["z_hi"]
+    eye = sp.identity(n, format="csr")
+    A = sp.bmat([[Q, -eye, eye],
+                 [sp.diags(z_lo), sp.diags(s_lo), None],
+                 [sp.diags(-z_hi), None, sp.diags(s_hi)]], format="csr")
+    B = sp.hstack([J, sp.csr_matrix((m, 2 * n))], format="csr")
+    C = (delta * sp.identity(m)).tocsr()
+    G = sp.diags(A.diagonal()).tocsr()
+    K = sp.bmat([[A, B.T], [B, -C]], format="csr")
+    b = np.concatenate([it["b_dual"], sigma * mu - s_lo * z_lo,
+                        sigma * mu - s_hi * z_hi, it["b_primal"]])
+    return SaddleSystem(name=f"{family}_{n}_unreduced", A=A, B=B, C=C, G=G,
+                        b=b, K=K)
 
 
 # ---------------------------------------------------------------------------

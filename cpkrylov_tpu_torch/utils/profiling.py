@@ -38,7 +38,10 @@ counters (``PATHS``) hold the paths a solve took:
 * ``scan_pack_us``: the host microseconds spent in
   ``precond/trisolve.py::pack_reduced_scan_np``;
 * ``scan_grid_launches``, ``scan_cluster_launches``: the B6 scans of
-  ``precond/cuda_tri.py`` on the persistent grid and on one cluster.
+  ``precond/cuda_tri.py`` on the persistent grid and on one cluster;
+* ``gmres_restarts``: the restart blocks of ``solvers/cpgmres.py`` (the
+  triangular solve, basis combination and reseed that end each sweep, the
+  last one included).
 
 :func:`launch_counts` and :func:`path_counts` read the two kinds;
 :func:`reset_launches` sets every counter to 0.  A new counter is its name
@@ -69,6 +72,10 @@ device's records, on its clock:
   ``cpkrylov.mixed.readback`` (the answer to the host) and
   ``cpkrylov.mixed.host_loop`` (the host loop);
 * ``cpkrylov.apply``: one ``CPPrecond.apply``;
+* ``cpkrylov.arnoldi``: one Arnoldi step's Gram-Schmidt and rotations in
+  ``solvers/cpgmres.py`` (after the step's products and apply, before its
+  read of the residual); ``cpkrylov.gmres.restart``: one restart block
+  there (the triangular solve, the basis combination and the reseed);
 * ``cpkrylov.host_read``: one device-to-host read of a value the host
   loop needs (``utils.device.host_read``): the kernels' stopping tests,
   the refinement trigger of ``CPPrecond.apply``, the mixed device loop's
@@ -102,6 +109,8 @@ MIXED_PACK_SPAN = "cpkrylov.mixed.pack"       # prepare_mixed_device's packing
 MIXED_READBACK_SPAN = "cpkrylov.mixed.readback"   # device answer to host
 MIXED_HOST_LOOP_SPAN = "cpkrylov.mixed.host_loop"  # the host outer loop
 APPLY_SPAN = "cpkrylov.apply"             # CPPrecond.apply
+ARNOLDI_SPAN = "cpkrylov.arnoldi"         # cpgmres: a step's Gram-Schmidt
+GMRES_RESTART_SPAN = "cpkrylov.gmres.restart"  # cpgmres: one restart block
 HOST_READ_SPAN = "cpkrylov.host_read"     # one device-to-host read
 
 # the counter registry: the kernels' launches (B1-B10), then the paths
@@ -111,7 +120,7 @@ KERNELS = ("dia_spmv", "bidiag_scan", "df_dia_spmv", "band_tri", "csr_spmv",
 PATHS = ("mixed_device_loops", "mixed_fallbacks", "dia_card_packs",
          "dia_gate_refusals", "tri_reduced_scan_builds", "tri_block_builds",
          "tri_bidiag_builds", "scan_pack_us", "scan_grid_launches",
-         "scan_cluster_launches", "block_card_packs")
+         "scan_cluster_launches", "block_card_packs", "gmres_restarts")
 COUNTS = dict.fromkeys(KERNELS + PATHS, 0)
 _COUNTS_LOCK = threading.Lock()
 

@@ -182,7 +182,7 @@ KERNELS = {"dia_spmv", "bidiag_scan", "df_dia_spmv", "band_tri", "csr_spmv",
 PATHS = {"mixed_device_loops", "mixed_fallbacks", "dia_card_packs",
          "dia_gate_refusals", "tri_reduced_scan_builds", "tri_block_builds",
          "tri_bidiag_builds", "scan_pack_us", "scan_grid_launches",
-         "scan_cluster_launches", "block_card_packs"}
+         "scan_cluster_launches", "block_card_packs", "gmres_restarts"}
 
 
 def test_the_registry_holds_the_twenty_counters_and_resets_them():

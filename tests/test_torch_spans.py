@@ -271,7 +271,7 @@ def _counts(loops, fallbacks):
             "tri_reduced_scan_builds": 0, "tri_block_builds": 0,
             "tri_bidiag_builds": 0, "scan_pack_us": 0,
             "scan_grid_launches": 0, "scan_cluster_launches": 0,
-            "block_card_packs": 0}
+            "block_card_packs": 0, "gmres_restarts": 0}
 
 
 def test_a_fallback_is_counted():
